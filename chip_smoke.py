@@ -2,22 +2,35 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line:
+Phases, each printing one line or more:
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build: compile the render kernel K1 (csrc/render_kernel.cu) with nvcc;
-  3. kernel vs plain: K1 against its plain torch version on the same CUDA
+  2. build: compile K1 (csrc/render_kernel.cu), K3 (csrc/intersect_kernel.cu)
+     and K4 (csrc/bvh_winner_kernel.cu) with nvcc, one process per source;
+     ptxas's registers and spills per kernel; the tile-BVH builder in use;
+  3. K1 vs plain: K1 against its plain torch version on the same CUDA
      tensors, 5 presets at 64x64, 4 spp, 6 bounces, plus Cornell with
      Russian roulette and with the sky off (rtol = atol = 1e-4; smallpt by
      the statistical rule of tests/test_torch_bounce_kernel.py), and a
      small Cornell render on the card against the same render on the CPU;
-  4. main path: the headline benchmark (Cornell 512x512, 128 spp, 10
+  4. K1 main path: the headline benchmark (Cornell 512x512, 128 spp, 10
      bounces, one pass) through integrator.render, counting K1's launches
      and checking the image;
-  5. plain time: the plain version at the headline config (at 32 spp,
-     scaled, when 128 would exceed a minute), and K1 against it on those
-     same inputs (rtol = atol = 1e-4).
+  5. K1 plain time: the plain version at the headline config (32 spp,
+     scaled to 128), and K1 against it on those same inputs (1e-4);
+  6. K3 and K4 vs plain: each kernel against its plain version on the same
+     CUDA tensors, bit for bit (codes equal, max |dt| 0), on the primary
+     and the bounce-2 wavefronts of both mesh stand-ins, and K3 with
+     triangles on a random triangle soup;
+  7. mesh card vs CPU: a 32x32 tile-BVH mesh render on the card against
+     the same render on the CPU (rtol = atol = 1e-4);
+  8. mesh main path: the mesh benchmark (the 960-triangle stand-in,
+     512x512, 32 spp, 10 bounces, passes of 16 spp, sorted) through
+     integrator.render, counting K3's and K4's launches and checking the
+     image;
+  9. K3 and K4 times: CUDA events of each kernel on the full-size primary
+     and bounce-2 wavefronts beside its plain version's time.
 
-Then one JSON line with the kernel's numbers, the nvidia-smi line, and a
+Then one JSON line with the kernels' numbers, the nvidia-smi line, and a
 last JSON line {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; without a CUDA device it exits non-zero before printing results.
 """
@@ -44,19 +57,84 @@ def _event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _host_ms(fn) -> tuple[float, object]:
+    """Host-clock milliseconds of one run of `fn`, ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1000.0, out
+
+
+def _wavefronts(scene, camera, cfg, samples, dev):
+    """The primary and the bounce-2 wavefronts of a tile-BVH scene's first
+    pass, as the sorted engine traces them: [(name, rays, alive)]."""
+    from raytracingthenextweekcuda_tpu_torch.models import camera as cam
+    from raytracingthenextweekcuda_tpu_torch.models import integrator
+    from raytracingthenextweekcuda_tpu_torch.ops import rng, threefry
+    from raytracingthenextweekcuda_tpu_torch.ops.fused import device_scene
+    from raytracingthenextweekcuda_tpu_torch.ops.materials import material_table
+    from raytracingthenextweekcuda_tpu_torch.ops.wavefront_sort import ray_sort_key
+
+    frame = cam.derive(camera, cfg.aspect_ratio)
+    words = threefry.split(threefry.fold_in(threefry.key(cfg.seed), 0), samples)
+    ds = device_scene(scene, dev)
+    rays, ctx = cam.generate_rays_multi(frame, words, cfg.width, cfg.height, dev)
+    n = rays.count
+    state = (rays, torch.ones((n, 3), device=dev), torch.zeros((n, 3), device=dev),
+             torch.ones((n,), dtype=torch.bool, device=dev))
+    out = [("primary", rays, state[3])]
+    mats = material_table(scene.materials, dev)
+    bounds = torch.from_numpy(scene.packed.bvh_bounds[:, 0].copy()).to(dev)
+    for b in (0, 1):
+        if b:
+            key = ray_sort_key(state[0].origin, state[0].direction, state[3],
+                               bounds[0:3], bounds[3:6])
+            perm = torch.argsort(key, stable=True)
+            state = (state[0].take(perm), state[1][perm], state[2][perm],
+                     state[3][perm])
+            ctx = rng.RayCtx(ctx.pixel_id[perm], ctx.base0[perm], ctx.base1[perm])
+        state = integrator._bounce_body(ds, mats, scene.packed.used_kinds, cfg,
+                                        state, ctx, b)
+    out.append(("bounce2", state[0], state[3]))
+    return ds, out
+
+
+def _check_equal(name, t_k, c_k, t_p, c_p) -> float:
+    """K vs plain bit for bit: codes equal and max |dt| 0. Returns max |dt|."""
+    t_k, c_k, t_p, c_p = (x.cpu().numpy() for x in (t_k, c_k, t_p, c_p))
+    if not np.array_equal(c_k, c_p):
+        bad = int((c_k != c_p).sum())
+        raise AssertionError(f"{name}: {bad} of {c_k.size} codes differ")
+    err = float(np.abs(t_k.astype(np.float64) - t_p.astype(np.float64)).max())
+    if err != 0.0:
+        raise AssertionError(f"{name}: max |dt| {err}")
+    return err
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
 
-    from raytracingthenextweekcuda_tpu_torch.apps.bench import card_info, run_bench
-    from raytracingthenextweekcuda_tpu_torch.config import RenderConfig
+    from raytracingthenextweekcuda_tpu_torch.apps import bench_scenes
+    from raytracingthenextweekcuda_tpu_torch.apps.bench import (
+        card_info,
+        run_bench,
+        run_mesh_bench,
+    )
+    from raytracingthenextweekcuda_tpu_torch.config import EPSILON, RenderConfig
+    from raytracingthenextweekcuda_tpu_torch.io.bvh_cache import builder_name
     from raytracingthenextweekcuda_tpu_torch.models import camera as cam
     from raytracingthenextweekcuda_tpu_torch.models import integrator, presets
     from raytracingthenextweekcuda_tpu_torch.models.film import to_image
-    from raytracingthenextweekcuda_tpu_torch.models.scene import finalize
+    from raytracingthenextweekcuda_tpu_torch.models.scene import SceneBuilder, finalize
     from raytracingthenextweekcuda_tpu_torch.ops import threefry
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import bounce_kernel as bk
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
+    from raytracingthenextweekcuda_tpu_torch.ops.fused import mesh_query
+    from raytracingthenextweekcuda_tpu_torch.ops.rays import Rays
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -69,13 +147,16 @@ def main() -> None:
     # 2. build
     t0 = time.perf_counter()
     build.load()
-    ptxas = [ln.split(":", 1)[-1].strip() for ln in build.BUILD_LOG.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"[2 build] K1 built and loaded in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {build.BUILD_SECONDS:.2f} s) -> {build.library_path().name} | "
-          f"ptxas: {'; '.join(ptxas[:2])}", flush=True)
+    print(f"[2 build] K1, K3, K4 built and loaded in {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {build.BUILD_SECONDS:.2f} s, one process per source) -> "
+          f"{build.library_path().name} | tile-BVH builder: {builder_name()}",
+          flush=True)
+    for src, log in sorted(build.BUILD_LOGS.items()):
+        ptxas = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"[2 build] {src} ptxas: {'; '.join(ptxas)}", flush=True)
 
-    # 3. kernel vs plain on the card
+    # 3. K1 vs plain on the card
     cases = [
         ("sphere_plane", presets.diffuse_sphere_plane, {}),
         ("cornell", presets.cornell_box, {}),
@@ -86,7 +167,7 @@ def main() -> None:
          dict(russian_roulette=True, rr_start_bounce=2)),
         ("cornell_nosky", presets.cornell_box, dict(sky_background=False)),
     ]
-    max_err = 0.0
+    k1_err = 0.0
     for case, preset, extra in cases:
         scene, camera = preset()
         scene = finalize(scene, use_bvh=False)
@@ -112,26 +193,26 @@ def main() -> None:
             np.testing.assert_allclose(k1, plain, rtol=1e-4, atol=1e-4,
                                        err_msg=case)
             note = "rtol=atol=1e-4"
-        max_err = max(max_err, float(diff.max()))
-        print(f"[3 kernel-vs-plain] {case}: max|diff| {float(diff.max()):.3e} "
+        k1_err = max(k1_err, float(diff.max()))
+        print(f"[3 K1 vs plain] {case}: max|diff| {float(diff.max()):.3e} "
               f"({note}) mean {float(k1.mean()):.6f}", flush=True)
 
-    scene, camera = presets.cornell_box()
-    scene = finalize(scene)
+    cornell, camera = presets.cornell_box()
+    cornell = finalize(cornell)
     small = RenderConfig(width=32, height=32, spp=4, bounces=6, spp_per_pass=2)
-    on_card = integrator.render(scene, camera, small, device=dev).accum.cpu().numpy()
-    on_cpu = integrator.render(scene, camera, small, device="cpu").accum.numpy()
+    on_card = integrator.render(cornell, camera, small, device=dev).accum.cpu().numpy()
+    on_cpu = integrator.render(cornell, camera, small, device="cpu").accum.numpy()
     np.testing.assert_allclose(on_card, on_cpu, rtol=1e-4, atol=1e-4)
-    max_err = max(max_err, float(np.abs(on_card - on_cpu).max()))
+    k1_err = max(k1_err, float(np.abs(on_card - on_cpu).max()))
     print(f"[3 card-vs-cpu] cornell 32x32 render: max|diff| "
           f"{float(np.abs(on_card - on_cpu).max()):.3e}", flush=True)
 
-    # 4. main path
+    # 4. K1 main path
     bk.KERNEL_LAUNCHES = 0
     result = run_bench(device=dev, keep_film=True)
-    launches = bk.KERNEL_LAUNCHES
+    k1_launches = bk.KERNEL_LAUNCHES
     film = result.pop("film")
-    if launches <= 0:
+    if k1_launches <= 0:
         raise AssertionError("the headline render did not launch K1")
     mean = film.mean.cpu().numpy()
     if mean.shape != (512, 512, 3) or not np.isfinite(mean).all():
@@ -141,52 +222,167 @@ def main() -> None:
     right = img[170:340, -40:-5].reshape(-1, 3).mean(0)
     if not (left[0] > left[2] and right[2] > right[0]):
         raise AssertionError(f"wall colours wrong: left {left}, right {right}")
-    print(f"[4 main path] {json.dumps(result)} | K1 launches {launches} | "
+    print(f"[4 K1 main path] {json.dumps(result)} | K1 launches {k1_launches} | "
           f"left wall rgb {left.round(1).tolist()} right wall rgb "
           f"{right.round(1).tolist()}", flush=True)
 
-    # 5. plain time at the headline config; K1's device time beside it
+    # 5. K1 plain time at the headline config (32 spp, scaled to 128)
     cfg = RenderConfig(width=512, height=512, spp=128, bounces=10, spp_per_pass=128)
     frame = cam.derive(camera, cfg.aspect_ratio)
     words = threefry.split(threefry.fold_in(threefry.key(cfg.seed), 0), 128)
-    inp = bk.render_inputs(scene.packed, frame, words, cfg, device=dev)
+    inp = bk.render_inputs(cornell.packed, frame, words, cfg, device=dev)
     k1_ms = _event_ms(lambda: bk.render_kernel(inp), reps=3)
-    one = bk.render_inputs(scene.packed, frame, words[:1], cfg, device=dev)
-    t0 = time.perf_counter()
-    bk.render_reference(one)
-    torch.cuda.synchronize()
-    est_ms = (time.perf_counter() - t0) * 1000.0 * 128
-    plain_spp = 128 if est_ms <= 60_000 else 32
-    sub = bk.render_inputs(scene.packed, frame, words[:plain_spp], cfg, device=dev)
-    t0 = time.perf_counter()
-    plain = bk.render_reference(sub)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1000.0 * (128 / plain_spp)
-    # K1 against the plain version on the same headline inputs.
-    k1 = bk.render_kernel(sub).cpu().numpy()
+    plain_spp = 32
+    sub = bk.render_inputs(cornell.packed, frame, words[:plain_spp], cfg, device=dev)
+    k1_plain_ms, plain = _host_ms(lambda: bk.render_reference(sub))
+    k1_plain_ms *= 128 / plain_spp
+    k1_out = bk.render_kernel(sub).cpu().numpy()
     plain = plain.cpu().numpy()
-    if k1.shape != (cfg.num_pixels, 3) or not np.isfinite(k1).all():
+    if k1_out.shape != (cfg.num_pixels, 3) or not np.isfinite(k1_out).all():
         raise AssertionError("headline: K1 output not finite or misshapen")
-    np.testing.assert_allclose(k1, plain, rtol=1e-4, atol=1e-4,
+    np.testing.assert_allclose(k1_out, plain, rtol=1e-4, atol=1e-4,
                                err_msg="headline")
-    head_err = float(np.abs(k1 - plain).max())
-    max_err = max(max_err, head_err)
-    print(f"[5 plain time] headline config: K1 {k1_ms:.3f} ms (CUDA events, "
-          f"mean of 3) | plain {plain_ms:.1f} ms (host clock, {plain_spp} spp"
-          f"{' x4 scaled' if plain_spp != 128 else ''}) | K1 vs plain at "
-          f"{plain_spp} spp: max|diff| {head_err:.3e} (rtol=atol=1e-4) | {card}",
+    head_err = float(np.abs(k1_out - plain).max())
+    k1_err = max(k1_err, head_err)
+    print(f"[5 K1 plain time] headline config: K1 {k1_ms:.3f} ms (CUDA events, "
+          f"mean of 3) | plain {k1_plain_ms:.1f} ms (host clock, {plain_spp} spp "
+          f"x{128 // plain_spp} scaled) | K1 vs plain at {plain_spp} spp: "
+          f"max|diff| {head_err:.3e} (rtol=atol=1e-4) | {card}", flush=True)
+
+    # 6. K3 and K4 against their plain versions, bit for bit
+    mesh_cfg = RenderConfig(width=512, height=512, spp=32, bounces=10,
+                            spp_per_pass=16)
+    stand_ins = [("published", bench_scenes.published_mesh_scene, 16),
+                 ("stress", bench_scenes.stress_mesh_scene, 2)]
+    k3_err = k4_err = 0.0
+    timing_inputs = None
+    for label, make, samples in stand_ins:
+        scene, mcam, _ = make()
+        scene = finalize(scene)
+        ds, fronts = _wavefronts(scene, mcam, mesh_cfg, samples, dev)
+        for front, rays, alive in fronts:
+            tag = f"{label}/{front}"
+            t_k, c_k = k3.intersect_packed(rays, ds.analytic, EPSILON, alive=alive)
+            t_p, c_p = k3.closest_hit_reference(rays.origin, rays.direction,
+                                                rays.time, alive, ds.analytic,
+                                                EPSILON)
+            k3_err = max(k3_err, _check_equal(f"K3 {tag}", t_k, c_k, t_p, c_p))
+            alive_mesh, t_cap = mesh_query(ds.leaves, rays, EPSILON, alive, t_k, c_k)
+            args = k4.winner_inputs(rays, ds.leaves, EPSILON, alive_mesh, t_cap)
+            t4, c4 = k4.winner(*args, ds.leaves, EPSILON)
+            t4p, c4p = k4.winner_reference(*args, ds.leaves, EPSILON)
+            k4_err = max(k4_err, _check_equal(f"K4 {tag}", t4, c4, t4p, c4p))
+            n_live = int(alive.sum())
+            wl = args[4]
+            print(f"[6 K3/K4 vs plain] {tag}: {rays.count} rays ({n_live} live, "
+                  f"{int(alive_mesh.sum())} to K4, {ds.leaves.n_leaves} leaves, "
+                  f"mean list {float(wl.counts.float().mean()):.2f}) | K3 codes "
+                  f"equal, max|dt| 0 | K4 codes equal, max|dt| 0 | mesh hits "
+                  f"{int((c4 >= 0).sum())}", flush=True)
+            if label == "published":
+                timing_inputs = timing_inputs or {}
+                timing_inputs[front] = (rays, alive, ds, args)
+
+    soup = SceneBuilder()
+    soup.lambertian(0, (0.5, 0.5, 0.5))
+    gen = np.random.default_rng(3)
+    for _ in range(64):
+        soup.sphere(gen.uniform(-2, 2, 3), float(gen.uniform(0.05, 0.4)), 0)
+    for _ in range(8):
+        soup.plane(gen.uniform(-2, 2, 3), (0.0, 1.0, 0.0), (1.0, 0.0, 1.0), 2, 0)
+    tri = gen.uniform(-2, 2, (3000, 1, 3)) + gen.uniform(-0.3, 0.3, (3000, 3, 3))
+    soup.mesh(tri.astype(np.float32), 0)
+    soup_scene = finalize(soup.build(), use_bvh=False)
+    rows = k3.analytic_rows(soup_scene.packed, dev, include_triangles=True)
+    m = 1 << 16
+    o = torch.from_numpy(gen.uniform(-3, 3, (m, 3)).astype(np.float32)).to(dev)
+    d = torch.from_numpy(gen.normal(size=(m, 3)).astype(np.float32)).to(dev)
+    d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+    soup_rays = Rays(o, d, torch.zeros((m,), device=dev))
+    alive = torch.from_numpy(gen.random(m) > 0.1).to(dev)
+    t_k, c_k = k3.intersect_packed(soup_rays, rows, EPSILON, alive=alive)
+    t_p, c_p = k3.closest_hit_reference(o, d, soup_rays.time, alive, rows, EPSILON)
+    k3_err = max(k3_err, _check_equal("K3 soup", t_k, c_k, t_p, c_p))
+    print(f"[6 K3/K4 vs plain] K3 with triangles on a random soup "
+          f"({rows.counts} spheres/planes/triangles, {m} rays): codes equal, "
+          f"max|dt| 0, hits {int((c_k >= 0).sum())}", flush=True)
+
+    # 7. a small tile-BVH mesh render on the card against the CPU
+    mesh, mcam = presets.mesh_showcase(16, 32)
+    mesh = finalize(mesh)
+    small = RenderConfig(width=32, height=32, spp=4, bounces=6, spp_per_pass=2)
+    on_card = integrator.render(mesh, mcam, small, device=dev).accum.cpu().numpy()
+    on_cpu = integrator.render(mesh, mcam, small, device="cpu").accum.numpy()
+    np.testing.assert_allclose(on_card, on_cpu, rtol=1e-4, atol=1e-4)
+    mesh_err = float(np.abs(on_card - on_cpu).max())
+    k3_err, k4_err = max(k3_err, mesh_err), max(k4_err, mesh_err)
+    print(f"[7 mesh card-vs-cpu] mesh_showcase(16, 32) tile-BVH 32x32, 4 spp, "
+          f"6 bounces: max|diff| {mesh_err:.3e} (rtol=atol=1e-4)", flush=True)
+
+    # 8. mesh main path
+    k3.KERNEL_LAUNCHES = 0
+    k4.KERNEL_LAUNCHES = 0
+    mesh_result = run_mesh_bench(device=dev, keep_film=True)
+    k3_launches, k4_launches = k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES
+    film = mesh_result.pop("film")
+    if k3_launches <= 0 or k4_launches <= 0:
+        raise AssertionError(f"the mesh render launched K3 {k3_launches} and "
+                             f"K4 {k4_launches} times")
+    mean = film.mean.cpu().numpy()
+    if mean.shape != (512, 512, 3) or not np.isfinite(mean).all():
+        raise AssertionError("mesh image not finite or misshapen")
+    # The stand-in's UV sphere winds its triangles inward, so with back
+    # faces culled a camera ray crosses the near side and hits the far side
+    # from within, and its path stays inside (but for the few that slip
+    # through a crack between two triangles): the sphere renders nearly
+    # black, in the reference as here. The floor around it is lit.
+    img = to_image(film).astype(np.float64)
+    centre = img[226:286, 226:286].reshape(-1, 3).mean(0)
+    floor = img[440:500, 40:472].reshape(-1, 3).mean(0)
+    if not (centre.max() < 10.0 and floor.min() > 100.0):
+        raise AssertionError(f"mesh image: centre rgb {centre} (want < 10), "
+                             f"floor rgb {floor} (want > 100)")
+    print(f"[8 mesh main path] {json.dumps(mesh_result)} | K3 launches "
+          f"{k3_launches} K4 launches {k4_launches} | centre (sphere) rgb "
+          f"{centre.round(2).tolist()} floor rgb {floor.round(1).tolist()}",
           flush=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "K1 render_kernel",
-        "route": "cuda",
-        "source": "raytracingthenextweekcuda_tpu_torch/csrc/render_kernel.cu",
-        "replaces": "raytracingthenextweekcuda_tpu/ops/pallas/bounce_kernel.py:1466",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k1_ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    # 9. K3 and K4 device times on the full-size wavefronts
+    times = {}
+    for front, (rays, alive, ds, args) in timing_inputs.items():
+        k3_ms = _event_ms(lambda: k3.intersect_packed(rays, ds.analytic, EPSILON,
+                                                      alive=alive), reps=10)
+        k3p_ms, _ = _host_ms(lambda: k3.closest_hit_reference(
+            rays.origin, rays.direction, rays.time, alive, ds.analytic, EPSILON))
+        k4_ms = _event_ms(lambda: k4.winner(*args, ds.leaves, EPSILON), reps=10)
+        k4p_ms, _ = _host_ms(lambda: k4.winner_reference(*args, ds.leaves, EPSILON))
+        wl_ms = _event_ms(lambda: k4.winner_inputs(rays, ds.leaves, EPSILON,
+                                                   args[2][:rays.count],
+                                                   args[3][:rays.count]), reps=3)
+        times[front] = (k3_ms, k3p_ms, k4_ms, k4p_ms)
+        print(f"[9 kernel times] published/{front} ({rays.count} rays): K3 "
+              f"{k3_ms:.4f} ms vs plain {k3p_ms:.3f} ms | K4 {k4_ms:.4f} ms vs "
+              f"plain {k4p_ms:.3f} ms | work-list build {wl_ms:.3f} ms "
+              f"(CUDA events; plain: host clock, one run) | {card}", flush=True)
+
+    k3_ms, k3p_ms, k4_ms, k4p_ms = times["primary"]
+    print(json.dumps({"kernels": [
+        {"name": "K1 render_kernel", "route": "cuda",
+         "source": "raytracingthenextweekcuda_tpu_torch/csrc/render_kernel.cu",
+         "replaces": "raytracingthenextweekcuda_tpu/ops/pallas/bounce_kernel.py:1466",
+         "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_ms,
+         "plain_ms": k1_plain_ms},
+        {"name": "K3 closest_hit_kernel", "route": "cuda",
+         "source": "raytracingthenextweekcuda_tpu_torch/csrc/intersect_kernel.cu",
+         "replaces": "raytracingthenextweekcuda_tpu/ops/pallas/intersect_kernel.py:443",
+         "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
+         "plain_ms": k3p_ms},
+        {"name": "K4 bvh_winner_kernel", "route": "cuda",
+         "source": "raytracingthenextweekcuda_tpu_torch/csrc/bvh_winner_kernel.cu",
+         "replaces": "raytracingthenextweekcuda_tpu/ops/pallas/bvh_winner_kernel.py:201",
+         "launches": k4_launches, "max_abs_err": k4_err, "ms": k4_ms,
+         "plain_ms": k4p_ms},
+    ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -3,9 +3,10 @@ raytracingthenextweekcuda_tpu/cli.py):
 
     rtnw-torch render --preset cornell --width 512 --height 512 --spp 32 --out render.png
     rtnw-torch bench  [--width 512 --height 512 --spp 128 --bounces 10]
+    rtnw-torch bench --mesh   # tile-BVH mesh path, 512x512, 32 spp, 10 bounces
 
 Both run on `--device` (default cuda); `render --device cpu` uses the
-render kernel's plain torch version.
+kernels' plain torch versions.
 """
 
 from __future__ import annotations
@@ -62,11 +63,20 @@ def cmd_render(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    from raytracingthenextweekcuda_tpu_torch.apps.bench import run_bench
+    from raytracingthenextweekcuda_tpu_torch.apps.bench import (
+        run_bench,
+        run_mesh_bench,
+    )
 
-    result = run_bench(width=args.width, height=args.height, spp=args.spp,
-                       bounces=args.bounces, spp_per_pass=args.spp,
-                       device=args.device)
+    if args.mesh:
+        result = run_mesh_bench(width=args.width, height=args.height,
+                                spp=args.spp or 32, bounces=args.bounces,
+                                device=args.device)
+    else:
+        spp = args.spp or 128
+        result = run_bench(width=args.width, height=args.height, spp=spp,
+                           bounces=args.bounces, spp_per_pass=spp,
+                           device=args.device)
     print(json.dumps(result))
     return 0
 
@@ -86,10 +96,13 @@ def main(argv=None) -> int:
     pr.add_argument("--out", default="render.png")
     pr.set_defaults(fn=cmd_render)
 
-    pb = sub.add_parser("bench", help="headline benchmark, one JSON line")
+    pb = sub.add_parser("bench", help="headline or mesh benchmark, one JSON line")
+    pb.add_argument("--mesh", action="store_true",
+                    help="the tile-BVH mesh benchmark (32 spp in passes of 16)")
     pb.add_argument("--width", type=int, default=512)
     pb.add_argument("--height", type=int, default=512)
-    pb.add_argument("--spp", type=int, default=128)
+    pb.add_argument("--spp", type=int, default=0,
+                    help="default 128, or 32 with --mesh")
     pb.add_argument("--bounces", type=int, default=10)
     pb.add_argument("--device", default="cuda")
     pb.set_defaults(fn=cmd_bench)

@@ -33,11 +33,13 @@ class RenderConfig:
     sky_background: bool = True
     # Root of the key tree (threefry key words, ops/threefry.py).
     seed: int = 1984
-    # Render each pass with the whole-render kernel. The port has only this
-    # engine so far; False raises (see models/integrator.py).
+    # Render with the forward engines (K1, or the sorted wavefront for
+    # tile-BVH scenes). False selects the differentiable engine, which the
+    # port does not have yet, and raises (see models/integrator.py).
     fused_bounce: bool = True
-    # Coherence sort of tile-BVH wavefronts; kept for config parity, read
-    # by no code of the port yet.
+    # Tile-BVH scenes: sort the wavefront by the coherence key before
+    # every `sort_stride`-th bounce from the second on (models/integrator.
+    # _trace_sorted); False keeps it unsorted. Neither changes the image.
     sort_rays: bool = True
     sort_stride: int = 1
 

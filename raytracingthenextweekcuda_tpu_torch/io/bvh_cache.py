@@ -1,0 +1,69 @@
+"""Tile-BVH build with an optional on-disk cache (counterpart of the tile
+part of raytracingthenextweekcuda_tpu/io/bvh_cache.py).
+
+The cache is an .npz per mesh, keyed by a content hash of the vertex
+array and the builder, under a directory the caller names; without one
+nothing is read or written.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import zipfile
+
+import numpy as np
+
+from raytracingthenextweekcuda_tpu_torch import native
+from raytracingthenextweekcuda_tpu_torch.ops.bvh_tile import (
+    TileBVH,
+    build_tile_bvh,
+    build_tile_bvh_sah,
+)
+
+
+def mesh_hash(vertices) -> str:
+    arr = np.ascontiguousarray(np.asarray(vertices, np.float32))
+    return hashlib.sha256(arr.tobytes()).hexdigest()[:16]
+
+
+def builder_name() -> str:
+    """The builder `build_or_load_tile_bvh` uses here: "sah" when the
+    native library loads, else "median"."""
+    return "sah" if native.available() else "median"
+
+
+def save_tile_bvh(path: str, tb: TileBVH) -> None:
+    np.savez_compressed(path, bounds=tb.bounds, meta=tb.meta, perm=tb.perm)
+
+
+def load_tile_bvh(path: str) -> TileBVH:
+    with np.load(path) as z:
+        return TileBVH(bounds=z["bounds"], meta=z["meta"], perm=z["perm"])
+
+
+def build_or_load_tile_bvh(vertices: np.ndarray, leaf_size: int,
+                           cache_dir: str | None = None) -> TileBVH:
+    """TileBVH of `vertices`: the native SAH tiles when the library loads,
+    else the median split. With `cache_dir`, a cached build of the same
+    vertices and builder is loaded, and a new build is stored there."""
+    tag = builder_name()
+    path = None
+    if cache_dir is not None:
+        path = os.path.join(
+            cache_dir, f"tile_{tag}{leaf_size}_{mesh_hash(vertices)}.npz")
+        if os.path.exists(path):
+            try:
+                return load_tile_bvh(path)
+            except (OSError, ValueError, KeyError, zipfile.BadZipFile):
+                pass  # unreadable cache file: build anew and overwrite it
+    tb = (build_tile_bvh_sah(vertices, leaf_size) if tag == "sah"
+          else build_tile_bvh(vertices, leaf_size))
+    if path is not None:
+        os.makedirs(cache_dir, exist_ok=True)
+        save_tile_bvh(path, tb)
+    return tb
+
+
+__all__ = ["build_or_load_tile_bvh", "builder_name", "load_tile_bvh",
+           "mesh_hash", "save_tile_bvh"]

@@ -15,9 +15,12 @@ import numpy as np
 import torch
 
 from raytracingthenextweekcuda_tpu_torch.ops import linalg
+from raytracingthenextweekcuda_tpu_torch.ops.rays import Rays
 from raytracingthenextweekcuda_tpu_torch.ops.rng import (
     RAYGEN_DOMAIN,
     RAYGEN_DOMAIN2,
+    RayCtx,
+    key_bases,
     pcg4d,
     to_uniform,
 )
@@ -105,10 +108,42 @@ def pack_frame(frame: CameraFrame, device=None) -> torch.Tensor:
     ]).to(device)
 
 
-def raygen(pid: torch.Tensor, b0: int, b1: int, frame: torch.Tensor,
+def ray_context(sample_words, pixel_ids: torch.Tensor) -> RayCtx:
+    """The RNG context of one sample's rays: the sample's two key words
+    (one row of ops/threefry.split) and the rays' pixel ids."""
+    b0, b1 = (int(w) for w in np.asarray(sample_words, np.uint32).reshape(2))
+    return RayCtx(pixel_ids.to(torch.int64), b0, b1)
+
+
+def generate_rays_multi(frame: CameraFrame, sample_words, width: int,
+                        height: int, device="cpu") -> tuple[Rays, RayCtx]:
+    """One primary ray per (sample, pixel), sample-major: ray s*n + p is
+    sample s at pixel p, n = width*height. `sample_words` is the (g, 2)
+    uint32 key words of the g samples; each ray's context carries its own
+    sample's words."""
+    b0, b1 = key_bases(sample_words, device)
+    n = width * height
+    g = b0.shape[0]
+    pid = torch.arange(n, dtype=torch.int64, device=device).repeat(g)
+    ctx = RayCtx(pid, b0.repeat_interleave(n), b1.repeat_interleave(n))
+    return generate_rays_ctx(frame, ctx, width, height), ctx
+
+
+def generate_rays_ctx(frame: CameraFrame, ctx: RayCtx, width: int,
+                      height: int) -> Rays:
+    """The primary rays of a prebuilt RayCtx (see `raygen`)."""
+    pid = ctx.pixel_id
+    ox, oy, oz, dx, dy, dz, tm = raygen(
+        pid, ctx.base0, ctx.base1, pack_frame(frame, pid.device), width, height)
+    return Rays(origin=torch.stack([ox, oy, oz], dim=-1),
+                direction=torch.stack([dx, dy, dz], dim=-1), time=tm)
+
+
+def raygen(pid: torch.Tensor, b0, b1, frame: torch.Tensor,
            width: int, height: int):
-    """Thin-lens primary rays for int64 pixel ids `pid` and one sample's key
-    words (b0, b1); `frame` is `pack_frame`'s vector on pid's device.
+    """Thin-lens primary rays for int64 pixel ids `pid` and their samples'
+    key words (b0, b1: ints, or int64 tensors beside `pid`); `frame` is
+    `pack_frame`'s vector on pid's device.
 
     Pixel placement (x+u)/(width-1) is a true division; the lens disk is
     closed-form; directions are normalized with a float32 1/sqrt.

@@ -43,23 +43,51 @@ class Scene:
     packed: Optional[object] = None
 
 
-def finalize(scene: Scene, use_bvh: bool | None = None,
-             bvh_threshold: int = 256) -> Scene:
-    """Pack a built scene for the render kernel.
+# Triangles per tile-BVH leaf: the reference's default leaf width
+# (raytracingthenextweekcuda_tpu/models/scene.py:98).
+LEAF_WIDTH = 768
 
-    `use_bvh=None` auto-selects brute force below `bvh_threshold`
-    triangles and a tile-BVH above, as the reference does. The tile-BVH
-    path is not ported yet and raises.
+
+def finalize(scene: Scene, use_bvh: bool | None = None,
+             bvh_threshold: int = 256, bvh_cache_dir: str | None = None) -> Scene:
+    """Pack a built scene for rendering.
+
+    `use_bvh=None` auto-selects, as the reference does: brute force below
+    `bvh_threshold` triangles (the render kernel K1 walks every Havel
+    triangle, quad and box), a tile-BVH above. With a tile-BVH the
+    triangles are permuted into leaf-tile order (padded with degenerate,
+    never-hit slots), so a winner code of the work-list kernel K4 is a row
+    of `scene.triangles`; such scenes render through the sorted wavefront
+    (models/integrator.py). `bvh_cache_dir` names a directory that caches
+    the tile-BVH build (io/bvh_cache.py); None caches nothing.
     """
-    if use_bvh is None:
-        use_bvh = scene.triangles.count > bvh_threshold
-    if use_bvh and scene.triangles.count >= 2:
-        raise NotImplementedError("tile-BVH scenes: ROADMAP queue 1 item 6")
     from raytracingthenextweekcuda_tpu_torch.ops.cuda.bounce_kernel import (
         pack_scene_shaded,
     )
 
-    return dataclasses.replace(scene, packed=pack_scene_shaded(scene))
+    if use_bvh is None:
+        use_bvh = scene.triangles.count > bvh_threshold
+    tile_bvh = None
+    if use_bvh and scene.triangles.count >= 2:
+        from raytracingthenextweekcuda_tpu_torch.io.bvh_cache import (
+            build_or_load_tile_bvh,
+        )
+
+        tri = scene.triangles
+        tile_bvh = build_or_load_tile_bvh(tri.vertices, LEAF_WIDTH,
+                                          cache_dir=bvh_cache_dir)
+        perm = tile_bvh.perm
+        valid = perm >= 0
+        verts = np.zeros((perm.shape[0], 3, 3), np.float32)
+        verts[valid] = np.asarray(tri.vertices, np.float32)[perm[valid]]
+        mat_id = np.zeros((perm.shape[0],), np.int32)
+        mat_id[valid] = np.asarray(tri.material_id)[perm[valid]]
+        mesh_id = np.full((perm.shape[0],), -1, np.int32)
+        mesh_id[valid] = np.asarray(tri.mesh_id)[perm[valid]]
+        scene = dataclasses.replace(
+            scene, triangles=Triangles(verts, mat_id, mesh_id))
+    return dataclasses.replace(scene,
+                               packed=pack_scene_shaded(scene, tile_bvh))
 
 
 def _f32(x) -> np.ndarray:

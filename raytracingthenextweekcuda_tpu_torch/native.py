@@ -1,0 +1,95 @@
+"""ctypes binding of the native binned-SAH BVH builder (counterpart of the
+SAH part of raytracingthenextweekcuda_tpu/native.py).
+
+The shared library is the repository's `native/build/lib/librtnw_native.so`
+(built from native/bvh_builder.cpp with
+`cmake -S native -B native/build -G Ninja && ninja -C native/build`).
+When it is absent, `available()` is False and the tile-BVH uses the numpy
+median split instead (io/bvh_cache.py), as the reference does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import pathlib
+from typing import NamedTuple
+
+import numpy as np
+
+_ROOT = pathlib.Path(__file__).resolve().parents[1]
+_SEARCH = [_ROOT / "native" / "build" / "lib", _ROOT / "native" / "build"]
+_LIB: ctypes.CDLL | None = None
+
+
+class SAHTree(NamedTuple):
+    """Per-triangle binary SAH tree: internal nodes 0..T-2 (`left`,
+    `right`, contiguous triangle ranges), leaves T-1..2T-2 (leaf k holds
+    triangle tri_order[k]); node boxes for all 2T-1 nodes."""
+
+    left: np.ndarray         # (T-1,) i32
+    right: np.ndarray        # (T-1,) i32
+    node_lo: np.ndarray      # (2T-1, 3) f32
+    node_hi: np.ndarray      # (2T-1, 3) f32
+    tri_order: np.ndarray    # (T,) i32
+    range_first: np.ndarray  # (T-1,) i32
+    range_last: np.ndarray   # (T-1,) i32
+
+
+def _load() -> ctypes.CDLL | None:
+    global _LIB
+    if _LIB is None:
+        for d in _SEARCH:
+            path = d / "librtnw_native.so"
+            if path.exists():
+                lib = ctypes.CDLL(str(path))
+                fp = ctypes.POINTER(ctypes.c_float)
+                ip = ctypes.POINTER(ctypes.c_int32)
+                lib.rtnw_build_sah_bvh.restype = ctypes.c_int32
+                lib.rtnw_build_sah_bvh.argtypes = [
+                    fp, ctypes.c_int32, ip, ip, fp, fp, ip, ip, ip]
+                _LIB = lib
+                break
+    return _LIB
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def build_sah_bvh(vertices: np.ndarray) -> SAHTree:
+    """Native binned-SAH build over (T, 3, 3) float32 vertices, T >= 2.
+    Raises RuntimeError if the library is absent or the build fails."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(
+            "librtnw_native.so not built; run: "
+            "cmake -S native -B native/build -G Ninja && ninja -C native/build")
+    verts = np.ascontiguousarray(np.asarray(vertices, np.float32))
+    t = verts.shape[0]
+    if t < 2:
+        raise ValueError("need >= 2 triangles")
+    tree = SAHTree(
+        left=np.empty(t - 1, np.int32), right=np.empty(t - 1, np.int32),
+        node_lo=np.empty((2 * t - 1, 3), np.float32),
+        node_hi=np.empty((2 * t - 1, 3), np.float32),
+        tri_order=np.empty(t, np.int32),
+        range_first=np.empty(t - 1, np.int32),
+        range_last=np.empty(t - 1, np.int32),
+    )
+
+    def fp(a):
+        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+    def ip(a):
+        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+    depth = lib.rtnw_build_sah_bvh(
+        fp(verts), t, ip(tree.left), ip(tree.right), fp(tree.node_lo),
+        fp(tree.node_hi), ip(tree.tri_order), ip(tree.range_first),
+        ip(tree.range_last))
+    if depth <= 0:
+        raise RuntimeError(f"native SAH build failed (code {depth})")
+    return tree
+
+
+__all__ = ["SAHTree", "available", "build_sah_bvh"]

@@ -26,9 +26,19 @@ import torch
 
 from raytracingthenextweekcuda_tpu_torch.config import EPSILON, FLT_EPSILON
 from raytracingthenextweekcuda_tpu_torch.models.camera import pack_frame, raygen
+from raytracingthenextweekcuda_tpu_torch.ops.fmath import (
+    cos as _cos,
+    div as _div,
+    exp as _exp,
+    log as _log,
+    rsqrt as _rsqrt,
+    sin as _sin,
+    sqrt as _sqrt,
+)
 from raytracingthenextweekcuda_tpu_torch.ops.cuda.intersect_kernel import (
     BIG,
     PackedScene,
+    _first_min,
     _pad128,
     pack_scene_host,
 )
@@ -279,10 +289,47 @@ def _pack_havel(v0, e1, e2, mat_id, materials):
     return out
 
 
-def pack_scene_shaded(scene) -> PackedScene:
-    """PackedScene whose per-type arrays carry the 8 material rows, plus the
-    Havel triangle/quad and oriented-box rows of the brute-force mesh (the
-    render kernel's fast path). Tile-BVH packs are not ported yet."""
+def _pack_tile_bvh(scene, tile_bvh, T):
+    """Node, leaf and Havel rows of a tile-BVH pack (reference
+    bounce_kernel.py:417-456); the triangles are already in tile order."""
+    if tile_bvh.padded_tri_count != T:
+        raise ValueError(f"triangles ({T}) not in tile order "
+                         f"({tile_bvh.padded_tri_count})")
+    meta3 = np.asarray(tile_bvh.meta)
+    leaves = meta3[0] == 1
+    bounds = np.asarray(tile_bvh.bounds, np.float32)
+    # Rows 3-4 of the meta: the contiguous leaf-tile range [lo, hi) of each
+    # subtree (DFS preorder emits leaf tiles in increasing order).
+    leaf_size = T // max(int(leaves.sum()), 1)
+    before = np.concatenate([[0], np.cumsum(leaves)]).astype(np.int32)
+    tile_lo = before[np.arange(meta3.shape[1])] * leaf_size
+    tile_hi = before[meta3[2]] * leaf_size
+    verts = np.asarray(scene.triangles.vertices, np.float32)
+    v0 = verts[:, 0]
+    return dict(
+        bvh_bounds=bounds,
+        bvh_meta=np.concatenate([meta3, tile_lo[None], tile_hi[None]],
+                                axis=0).astype(np.int32),
+        leaf_bounds=bounds[:, leaves],
+        leaf_tiles=meta3[1][leaves][None, :].astype(np.int32),
+        # Padding slots (zero vertices) pack a zero normal: never hit.
+        trih=_pack_havel(v0, verts[:, 1] - v0, verts[:, 2] - v0,
+                         np.asarray(scene.triangles.material_id),
+                         scene.materials),
+        quadh=np.zeros((HAVEL_ROWS + MAT_ROWS, 1), np.float32),
+    )
+
+
+def pack_scene_shaded(scene, tile_bvh=None) -> PackedScene:
+    """PackedScene whose per-type arrays carry the 8 material rows.
+
+    Without `tile_bvh`, the triangles are merged into Havel quads and
+    oriented boxes where they can be and packed as Havel rows (the render
+    kernel's brute-force mesh). With `tile_bvh` (ops/bvh_tile.TileBVH),
+    `scene.triangles` must already be in its leaf-tile order
+    (models/scene.finalize does this): every triangle is Havel-packed in
+    that order and the node and leaf arrays ride along for K4.
+    """
     base = pack_scene_host(scene)
     S, P, T = base.counts
 
@@ -296,7 +343,11 @@ def pack_scene_shaded(scene) -> PackedScene:
 
     trih = quadh = boxh = None
     hcounts = (0, 0, 0)
-    if T:
+    bvh = {}
+    if tile_bvh is not None:
+        bvh = _pack_tile_bvh(scene, tile_bvh, T)
+        trih, quadh = bvh.pop("trih"), bvh.pop("quadh")
+    elif T:
         verts = np.asarray(scene.triangles.vertices, np.float32)
         mids = np.asarray(scene.triangles.material_id)
         qv0, qe1, qe2, qmat, rest = _merge_parallelograms(verts, mids)
@@ -321,6 +372,7 @@ def pack_scene_shaded(scene) -> PackedScene:
         boxh=boxh,
         hcounts=hcounts,
         has_emission=base.has_emission,
+        **bvh,
     )
 
 
@@ -483,36 +535,6 @@ def _launch(inp: RenderInputs) -> torch.Tensor:
 # Plain version (vectorized torch over rays)
 # --------------------------------------------------------------------------
 
-def _sqrt(x):
-    return torch.sqrt(x.double()).float()
-
-
-def _rsqrt(x):
-    return (1.0 / torch.sqrt(x.double())).float()
-
-
-def _sin(x):
-    return torch.sin(x.double()).float()
-
-
-def _cos(x):
-    return torch.cos(x.double()).float()
-
-
-def _exp(x):
-    return torch.exp(x.double()).float()
-
-
-def _log(x):
-    return torch.log(x.double()).float()
-
-
-def _div(x, s: float):
-    """x / s as a true division (a CUDA tensor divided by a Python scalar
-    may be multiplied by the scalar's reciprocal instead)."""
-    return x / torch.full_like(x, s)
-
-
 def _where(c, a, b):
     """jnp.where with Python-scalar branches, in float32."""
     if not torch.is_tensor(a):
@@ -520,12 +542,6 @@ def _where(c, a, b):
     if not torch.is_tensor(b):
         b = torch.full_like(a, b, dtype=torch.float32)
     return torch.where(c, a, b)
-
-
-def _first_min(cand):
-    """(min, first index of it) along dim 1."""
-    idx = torch.argmin(cand, dim=1)
-    return cand.gather(1, idx[:, None])[:, 0], idx
 
 
 def _last_min(cand):

@@ -1,11 +1,12 @@
 """Build the package's CUDA sources at first use and load them with ctypes.
 
-`nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
-interface for sm_90a (Hopper), without fast math: the kernels must round as
-their plain torch versions do. The library goes into `_build/` beside the
-package (gitignored), named by a hash of the sources and flags, so a change
-to a source rebuilds it and an unchanged tree loads the cached file. A
-failed build or load raises; nothing falls back.
+`nvcc` compiles every `csrc/*.cu` for sm_90a (Hopper), without fast math
+(the kernels must round as their plain torch versions do), one process per
+source, all started together; the objects are linked into one shared
+library with a plain C interface. The library goes into `_build/` beside
+the package (gitignored), named by a hash of the sources and flags, so a
+change to a source rebuilds it and an unchanged tree loads the cached
+file. A failed build or load raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -23,17 +24,17 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false",
+                 "-Xcompiler", "-fPIC")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _LIB: ctypes.CDLL | None = None
 # Seconds the last build of this process took (0.0 when the cached library
-# was loaded) and what nvcc printed, including ptxas's register and spill
-# report for each kernel.
+# was loaded) and what nvcc printed for each source, including ptxas's
+# register and spill report for each kernel.
 BUILD_SECONDS = 0.0
-BUILD_LOG = ""
+BUILD_LOGS: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -55,34 +56,54 @@ def _sources() -> list[pathlib.Path]:
 
 
 def library_path() -> pathlib.Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for p in sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"librtnw_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd: list[str]) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def build() -> pathlib.Path:
     """Compile the sources unless the library for their hash exists."""
-    global BUILD_SECONDS, BUILD_LOG
+    global BUILD_SECONDS
     out = library_path()
     if out.exists():
         BUILD_SECONDS = 0.0
         return out
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = pathlib.Path(tmp) / f"{src.stem}.o"
+            cmd = [nvcc, *COMPILE_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+                   str(src)]
+            objs.append(obj)
+            procs.append((src.name, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = {}, []
+        for name, cmd, proc in procs:
+            text, _ = proc.communicate()
+            logs[name] = text
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{text}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp_out = pathlib.Path(tmp) / out.name
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp_out),
-               *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        BUILD_LOG = proc.stdout + proc.stderr
+        _run([nvcc, *LINK_FLAGS, "-o", str(tmp_out), *map(str, objs)])
         os.replace(tmp_out, out)
+    BUILD_LOGS.clear()
+    BUILD_LOGS.update(logs)
     BUILD_SECONDS = time.perf_counter() - t0
     return out
 
@@ -93,7 +114,7 @@ def load() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn = lib.rtnw_render_samples
+        fn = lib.rtnw_render_samples  # K1
         fn.argtypes = [
             vp,                      # scene rows (float*)
             ci, ci, ci, ci, ci,      # n_sph, n_pla, n_trih, n_quad, n_box
@@ -103,6 +124,25 @@ def load() -> ctypes.CDLL:
             ci, ci,                  # width, height
             ci, ci, cf, ci,          # bounces, rr_start, tmin, flags
             vp,                      # out (n, 3) float
+            vp,                      # cudaStream_t
+        ]
+        fn.restype = ci
+        fn = lib.rtnw_closest_hit  # K3
+        fn.argtypes = [
+            vp, ci, ci, ci,          # rows (float*), n_sph, n_pla, n_tri
+            vp, vp, vp, vp, ci,      # origin, direction, time, alive (u8), n
+            cf,                      # tmin
+            vp, vp,                  # t out (float*), code out (int32*)
+            vp,                      # cudaStream_t
+        ]
+        fn.restype = ci
+        fn = lib.rtnw_bvh_winner  # K4
+        fn.argtypes = [
+            vp, vp, vp, vp,          # origin, direction, alive (u8), tcap
+            ci, vp, vp, vp, ci,      # n_blocks, counts, order, entry, n_leaves
+            vp, vp, vp, vp, ci,      # root, leaf_bounds, leaf_tiles, trih, tile
+            cf,                      # tmin
+            vp, vp,                  # t out (float*), code out (int32*)
             vp,                      # cudaStream_t
         ]
         fn.restype = ci

@@ -9,6 +9,9 @@ results are bit-equal to uint32 arithmetic. The CUDA kernel uses uint32_t.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 # Counter domains: bounce b uses counter b + 1; raygen uses these two.
@@ -17,6 +20,24 @@ RAYGEN_DOMAIN2 = 0x85EBCA6B
 
 _MASK = 0xFFFFFFFF
 _U24_INV = 1.0 / 16777216.0  # 2^-24, exact
+
+
+class RayCtx(NamedTuple):
+    """Per-ray RNG context: the pixel id and the two uint32 key words of
+    the ray's sample, as int64 tensors of uint32 values (the words are
+    Python ints when every ray shares one sample)."""
+
+    pixel_id: torch.Tensor
+    base0: torch.Tensor | int
+    base1: torch.Tensor | int
+
+
+def key_bases(sample_words, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two words of each sample's key, from the (S, 2) uint32 key words
+    of ops/threefry.split, as (S,) int64 tensors."""
+    w = np.asarray(sample_words, np.uint32).reshape(-1, 2).astype(np.int64)
+    return (torch.from_numpy(w[:, 0].copy()).to(device),
+            torch.from_numpy(w[:, 1].copy()).to(device))
 
 
 def _words(x, device=None) -> torch.Tensor:
@@ -78,6 +99,6 @@ def raygen_uniforms(pixel_id, base0, base1) -> torch.Tensor:
 
 
 __all__ = [
-    "pcg4d", "to_uniform", "uniforms4", "bounce_uniforms", "raygen_uniforms",
+    "RayCtx", "key_bases", "pcg4d", "to_uniform", "uniforms4", "bounce_uniforms", "raygen_uniforms",
     "shutter_uniform", "RAYGEN_DOMAIN", "RAYGEN_DOMAIN2",
 ]

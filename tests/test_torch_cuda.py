@@ -1,5 +1,7 @@
-"""K1 against its plain version on a CUDA card. These tests skip without a
-card. The file imports no jax, so it also runs where JAX is not installed:
+"""K1, K3 and K4 against their plain versions on a CUDA card (K1 at
+rtol = atol = 1e-4, K3 and K4 bit for bit), and renders on the card against
+the same renders on the CPU. These tests skip without a card. The file
+imports no jax, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
@@ -23,7 +25,7 @@ PRESETS = ["diffuse_sphere_plane", "cornell_box", "defocus_blur",
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: K1 is compiled and run only there")
+        pytest.skip("needs a CUDA device: the kernels are compiled and run only there")
     return torch.device("cuda", 0)
 
 
@@ -55,6 +57,73 @@ def test_render_on_card_matches_cpu(cuda_device):
     before = bk.KERNEL_LAUNCHES
     card = integrator.render(scene, camera, cfg, device=cuda_device)
     assert bk.KERNEL_LAUNCHES == before + 2  # one launch per pass
+    cpu = integrator.render(scene, camera, cfg, device="cpu")
+    np.testing.assert_allclose(card.accum.cpu().numpy(), cpu.accum.numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def mesh_scene():
+    scene, camera = tpresets.mesh_showcase(16, 32)
+    return finalize(scene), camera
+
+
+def _mesh_wavefront(scene, camera, device, bounces):
+    """A 64x64, 2-spp wavefront of the tile-BVH mesh after `bounces`
+    bounces of the sorted engine, on `device`: (DeviceScene, rays, alive)."""
+    from raytracingthenextweekcuda_tpu_torch.ops.fused import device_scene
+    from raytracingthenextweekcuda_tpu_torch.ops.materials import material_table
+
+    cfg = RenderConfig(width=64, height=64, spp=2, bounces=4)
+    words = threefry.split(threefry.key(11), 2)
+    ds = device_scene(scene, device)
+    rays, ctx = tcam.generate_rays_multi(tcam.derive(camera, 1.0), words, 64, 64,
+                                         device)
+    n = rays.count
+    state = (rays, torch.ones((n, 3), device=device),
+             torch.zeros((n, 3), device=device),
+             torch.ones((n,), dtype=torch.bool, device=device))
+    mats = material_table(scene.materials, device)
+    for b in range(bounces):
+        state = integrator._bounce_body(ds, mats, scene.packed.used_kinds, cfg,
+                                        state, ctx, b)
+    return ds, state[0], state[3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounces", [0, 2])
+def test_k3_k4_match_plain_on_card(cuda_device, bounces, mesh_scene):
+    from raytracingthenextweekcuda_tpu_torch.config import EPSILON
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
+    from raytracingthenextweekcuda_tpu_torch.ops.fused import mesh_query
+
+    ds, rays, alive = _mesh_wavefront(*mesh_scene, cuda_device, bounces)
+    before = (k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES)
+    t, code = k3.intersect_packed(rays, ds.analytic, EPSILON, alive=alive)
+    t_p, code_p = k3.closest_hit_reference(rays.origin, rays.direction,
+                                           rays.time, alive, ds.analytic, EPSILON)
+    assert torch.equal(code, code_p) and torch.equal(t, t_p)
+    alive_mesh, t_cap = mesh_query(ds.leaves, rays, EPSILON, alive, t, code)
+    args = k4.winner_inputs(rays, ds.leaves, EPSILON, alive_mesh, t_cap)
+    t4, c4 = k4.winner(*args, ds.leaves, EPSILON)
+    t4p, c4p = k4.winner_reference(*args, ds.leaves, EPSILON)
+    assert torch.equal(c4, c4p) and torch.equal(t4, t4p)
+    assert int((c4 >= 0).sum()) > 0
+    assert (k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_mesh_render_on_card_matches_cpu(cuda_device, mesh_scene):
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
+
+    scene, camera = mesh_scene
+    cfg = RenderConfig(width=24, height=16, spp=4, bounces=5, spp_per_pass=2,
+                       russian_roulette=True, rr_start_bounce=2)
+    before = (k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES)
+    card = integrator.render(scene, camera, cfg, device=cuda_device)
+    assert k3.KERNEL_LAUNCHES > before[0] and k4.KERNEL_LAUNCHES > before[1]
     cpu = integrator.render(scene, camera, cfg, device="cpu")
     np.testing.assert_allclose(card.accum.cpu().numpy(), cpu.accum.numpy(),
                                rtol=1e-4, atol=1e-4)

@@ -1,0 +1,286 @@
+"""The plain versions of K3 (analytic closest hit) and K4 (tile-BVH
+winner), and the work-list build, against the JAX reference on the CPU
+(its Pallas kernels in interpret mode), plus the wrappers' device rules.
+K3 and K4 themselves are held to these plain versions on a card
+(test_torch_cuda.py, chip_smoke.py).
+
+Tolerances. Codes must be equal and t within 1e-5 relative on live rays,
+except on at most 0.1% of them: XLA's CPU code contracts a*b + c into
+fused multiply-adds where the port rounds each operation, so a ray that
+grazes an edge or meets two primitives at nearly one distance may pick the
+other winner. Each test prints the fraction it sees. The work lists are
+integer and min/max bookkeeping over the same slab arithmetic, held bit
+for bit.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raytracingthenextweekcuda_tpu.models import presets as jpresets
+from raytracingthenextweekcuda_tpu.models.scene import SceneBuilder as JBuilder
+from raytracingthenextweekcuda_tpu.models.scene import finalize as jfinalize
+from raytracingthenextweekcuda_tpu.ops.pallas import bvh_winner_kernel as jk4
+from raytracingthenextweekcuda_tpu.ops.pallas import intersect_kernel as jk3
+from raytracingthenextweekcuda_tpu.ops.rays import Rays as JRays
+from raytracingthenextweekcuda_tpu_torch.config import EPSILON, RenderConfig
+from raytracingthenextweekcuda_tpu_torch.models import camera as tcam
+from raytracingthenextweekcuda_tpu_torch.models import integrator
+from raytracingthenextweekcuda_tpu_torch.models import presets as tpresets
+from raytracingthenextweekcuda_tpu_torch.models.scene import finalize, from_jax_arrays
+from raytracingthenextweekcuda_tpu_torch.ops import threefry
+from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
+from raytracingthenextweekcuda_tpu_torch.ops.fused import device_scene, mesh_query
+from raytracingthenextweekcuda_tpu_torch.ops.materials import material_table
+from raytracingthenextweekcuda_tpu_torch.ops.rays import Rays
+
+MAX_FLIP = 1e-3   # fraction of live rays whose winner may differ
+RTOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _no_reference_cache(monkeypatch):
+    monkeypatch.setenv("RTNW_BVH_CACHE", "")
+
+
+def _random_rays(n, seed, box=3.0):
+    g = np.random.default_rng(seed)
+    o = g.uniform(-box, box, (n, 3)).astype(np.float32)
+    d = g.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tm = g.random(n).astype(np.float32)
+    alive = g.random(n) > 0.1
+    return o, d, tm, alive
+
+
+def _rays_pair(o, d, tm):
+    return (JRays(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tm)),
+            Rays(torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tm)))
+
+
+def _soup(n_sph, n_pla, n_tri, seed):
+    """A random JAX scene of moving spheres, planes and a triangle soup."""
+    g = np.random.default_rng(seed)
+    b = JBuilder()
+    b.lambertian(0, (0.5, 0.5, 0.5))
+    for _ in range(n_sph):
+        c = g.uniform(-2, 2, 3)
+        b.moving_sphere(c, c + g.uniform(-0.2, 0.2, 3), 0.0, 1.0,
+                        float(g.uniform(0.02, 0.2)), 0)
+    for k in range(n_pla):
+        axis = k % 3  # orientations XY, YZ, XZ
+        normal = [(0.0, 0.0, 1.0), (1.0, 0.0, 0.0), (0.0, 1.0, 0.0)][axis]
+        b.plane(tuple(g.uniform(-2, 2, 3)), normal, tuple(g.uniform(0.2, 1.0, 3)),
+                axis, 0, two_sided=bool(k % 2))
+    if n_tri:
+        tri = g.uniform(-2, 2, (n_tri, 1, 3)) + g.uniform(-0.3, 0.3, (n_tri, 3, 3))
+        b.mesh(tri.astype(np.float32), 0)
+    return b.build()
+
+
+def _port_scene(jscene):
+    arrays = {f"{part}.{field}": np.asarray(getattr(getattr(jscene, part), field))
+              for part in ("spheres", "planes", "triangles", "materials", "mesh_info")
+              for field in getattr(jscene, part)._fields}
+    return from_jax_arrays(arrays)
+
+
+def _compare(name, t_ref, c_ref, t_out, c_out, live):
+    t_ref, c_ref = np.asarray(t_ref)[live], np.asarray(c_ref)[live]
+    t_out, c_out = t_out.numpy()[live], c_out.numpy()[live]
+    differ = c_ref != c_out
+    close = np.isclose(t_out, t_ref, rtol=RTOL, atol=0.0)
+    frac = float((differ | ~close).mean())
+    print(f"{name}: {frac:.4%} of {live.sum()} live rays differ")
+    assert frac <= MAX_FLIP, f"{name}: {frac:.4%} of live rays differ"
+    assert (c_ref >= 0).sum() > 0.05 * live.sum()  # the rays do hit things
+    return frac
+
+
+# ---- K3 ------------------------------------------------------------------
+
+# (spheres, planes, triangles): the reference's scalar variant (<= 2048
+# primitives) and its lane-tiled one, with and without triangles.
+SOUPS = {"scalar": (40, 6, 300), "lane_tiled": (2100, 9, 300)}
+
+
+@pytest.mark.parametrize("soup", sorted(SOUPS))
+@pytest.mark.parametrize("triangles", [True, False])
+def test_k3_plain_matches_reference(soup, triangles):
+    """Without triangles the reference packs the same spheres and planes
+    with no triangles at all: its lane-tiled kernel cannot run with
+    include_triangles=False (tracing slices a 128-wide tile from its
+    1-column triangle stub)."""
+    jscene = _soup(*SOUPS[soup], seed=1)
+    n_sph, n_pla, n_tri = SOUPS[soup]
+    n_prims = n_sph + n_pla + (n_tri if triangles else 0)
+    assert (n_prims <= jk3.SCALAR_KERNEL_MAX_PRIMS) == (soup == "scalar")
+    o, d, tm, alive = _random_rays(8192, seed=2)
+    jr, tr = _rays_pair(o, d, tm)
+    ref_scene = jscene if triangles else _soup(n_sph, n_pla, 0, seed=1)
+    t_ref, c_ref = jk3.intersect_packed(
+        jr, jk3.pack_scene_host(ref_scene), EPSILON, interpret=True,
+        alive=jnp.asarray(alive))
+    packed = k3.pack_scene_host(_port_scene(jscene))
+    before = k3.KERNEL_LAUNCHES
+    t_out, c_out = k3.intersect_packed(
+        tr, k3.analytic_rows(packed, "cpu", include_triangles=triangles),
+        EPSILON, alive=torch.from_numpy(alive))
+    assert k3.KERNEL_LAUNCHES == before  # CPU tensors: the plain version
+    assert t_out.dtype == torch.float32 and c_out.dtype == torch.int32
+    # Dead rays: (BIG, -1).
+    assert (c_out.numpy()[~alive] == -1).all()
+    assert (t_out.numpy()[~alive] == np.float32(k3.BIG)).all()
+    _compare(f"K3 {soup} triangles={triangles}", t_ref, c_ref, t_out, c_out, alive)
+
+
+# ---- work lists and K4 -----------------------------------------------------
+
+def _mesh_wavefronts():
+    """(reference scene, port DeviceScene, [(name, o, d, tm, alive, tcap)]):
+    the primary and the bounce-1 wavefronts of the tile-BVH mesh_showcase
+    at 24x24, 2 spp, as the port's sorted engine traces them."""
+    jscene, _ = jpresets.mesh_showcase(16, 32)
+    tscene, camera = tpresets.mesh_showcase(16, 32)
+    tscene = finalize(tscene)
+    cfg = RenderConfig(width=24, height=24, spp=2, bounces=4, spp_per_pass=2)
+    words = threefry.split(threefry.key(3), 2)
+    ds = device_scene(tscene, "cpu")
+    rays, ctx = tcam.generate_rays_multi(tcam.derive(camera, 1.0), words, 24, 24)
+    n = rays.count
+    state = (rays, torch.ones((n, 3)), torch.zeros((n, 3)),
+             torch.ones((n,), dtype=torch.bool))
+    out = []
+    for b in range(2):
+        t_sel, code = k3.intersect_packed(state[0], ds.analytic, EPSILON,
+                                          alive=state[3])
+        _, t_cap = mesh_query(ds.leaves, state[0], EPSILON, state[3], t_sel, code)
+        r = state[0]
+        out.append((("primary", "bounce1")[b], r.origin.numpy(),
+                    r.direction.numpy(), r.time.numpy(), state[3].numpy(),
+                    t_cap.numpy()))
+        state = integrator._bounce_body(ds, material_table(tscene.materials, "cpu"),
+                                        tscene.packed.used_kinds, cfg, state, ctx, b)
+    return jfinalize(jscene), tscene, ds, out
+
+
+@pytest.fixture(scope="module")
+def mesh_wavefronts():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RTNW_BVH_CACHE", "")
+        return _mesh_wavefronts()
+
+
+@pytest.mark.parametrize("frustum", [False, True], ids=["exact", "frustum"])
+@pytest.mark.parametrize("front", [0, 1], ids=["primary", "bounce1"])
+@pytest.mark.parametrize("with_tcap", [False, True], ids=["nocap", "tcap"])
+def test_worklist_matches_reference(mesh_wavefronts, front, frustum, with_tcap):
+    jscene, tscene, ds, fronts = mesh_wavefronts
+    _, o, d, _, alive, tcap = fronts[front]
+    pad = -o.shape[0] % 128
+    o = np.concatenate([o, np.zeros((pad, 3), np.float32)])
+    d = np.concatenate([d, np.zeros((pad, 3), np.float32)])
+    alive = np.concatenate([alive, np.zeros(pad, bool)])
+    tcap = np.concatenate([tcap, np.full(pad, k3.BIG, np.float32)])
+    ref = jk4.build_worklist(
+        *(jnp.asarray(o[:, a]) for a in range(3)),
+        *(jnp.asarray(d[:, a]) for a in range(3)),
+        jnp.asarray(alive.astype(np.int32)), jnp.asarray(tscene.packed.leaf_bounds),
+        tmin=EPSILON, block=128, frustum=frustum,
+        tcap=jnp.asarray(tcap) if with_tcap else None)
+    out = k4.build_worklist(torch.from_numpy(o), torch.from_numpy(d),
+                            torch.from_numpy(alive), ds.leaves.leaf_bounds,
+                            EPSILON, tcap=torch.from_numpy(tcap) if with_tcap else None,
+                            frustum=frustum)
+    counts = np.asarray(ref[0]).ravel()
+    np.testing.assert_array_equal(counts, out.counts.numpy())
+    assert counts.sum() > 0
+    order, entry = np.asarray(ref[1])[:, 0], np.asarray(ref[2])[:, 0]
+    for b, c in enumerate(counts):
+        assert set(order[b, :c]) == set(out.order[b, :c].tolist())
+    np.testing.assert_array_equal(entry, out.entry.numpy())
+
+
+def test_frustum_threshold():
+    assert not k4.use_frustum_worklist(k4.FRUSTUM_LEAF_THRESHOLD)
+    assert k4.use_frustum_worklist(k4.FRUSTUM_LEAF_THRESHOLD + 1)
+    assert k4.FRUSTUM_LEAF_THRESHOLD == jk4.FRUSTUM_LEAF_THRESHOLD
+
+
+@pytest.mark.parametrize("front", [0, 1], ids=["primary", "bounce1"])
+@pytest.mark.parametrize("with_tcap", [False, True], ids=["nocap", "tcap"])
+def test_k4_plain_matches_reference(mesh_wavefronts, front, with_tcap):
+    jscene, tscene, ds, fronts = mesh_wavefronts
+    _, o, d, tm, alive, tcap = fronts[front]
+    jr, tr = _rays_pair(o, d, tm)
+    cap = tcap if with_tcap else None
+    t_ref, c_ref = jk4.intersect_packed_bvh(
+        jr, jscene.packed, EPSILON, interpret=True, alive=jnp.asarray(alive),
+        t_cap=None if cap is None else jnp.asarray(cap))
+    before = k4.KERNEL_LAUNCHES
+    t_out, c_out = k4.intersect_packed_bvh(
+        tr, ds.leaves, EPSILON, alive=torch.from_numpy(alive),
+        t_cap=None if cap is None else torch.from_numpy(cap))
+    assert k4.KERNEL_LAUNCHES == before
+    assert (c_out.numpy()[~alive] == -1).all()
+    _compare(f"K4 front={front} tcap={with_tcap}", t_ref, c_ref, t_out, c_out,
+             alive)
+
+
+def test_k4_walk_is_order_independent(mesh_wavefronts):
+    """A permutation of the wavefront changes the blocks and their lists,
+    not a ray's winner (the invariant the sort relies on)."""
+    _, tscene, ds, fronts = mesh_wavefronts
+    _, o, d, tm, alive, tcap = fronts[1]
+    rays = Rays(torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tm))
+    a, c = torch.from_numpy(alive), torch.from_numpy(tcap)
+    t0, c0 = k4.intersect_packed_bvh(rays, ds.leaves, EPSILON, alive=a, t_cap=c)
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(len(o)))
+    t1, c1 = k4.intersect_packed_bvh(rays.take(perm), ds.leaves, EPSILON,
+                                     alive=a[perm], t_cap=c[perm])
+    np.testing.assert_array_equal(t0[perm].numpy(), t1.numpy())
+    np.testing.assert_array_equal(c0[perm].numpy(), c1.numpy())
+
+
+# ---- device rules ----------------------------------------------------------
+
+def test_launches_check_their_inputs():
+    o, d, tm, alive = _random_rays(256, seed=5)
+    rows = k3.analytic_rows(k3.pack_scene_host(_port_scene(_soup(4, 2, 3, 0))), "cpu")
+    with pytest.raises(ValueError, match="K3 input"):
+        k3._launch(torch.from_numpy(o).double(), torch.from_numpy(d),
+                   torch.from_numpy(tm), torch.from_numpy(alive), rows, EPSILON)
+    tscene = finalize(tpresets.mesh_showcase(16, 32)[0])
+    leaves = k4.leaf_scene(tscene.packed, "cpu")
+    rays = Rays(torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tm))
+    args = k4.winner_inputs(rays, leaves, EPSILON, torch.from_numpy(alive))
+    bad = (args[0], args[1], args[2].to(torch.uint8), args[3], args[4])
+    with pytest.raises(ValueError, match="K4 input"):
+        k4._launch(*bad, leaves, EPSILON)
+
+
+def test_launch_without_nvcc_raises(tmp_path, monkeypatch):
+    """The kernel paths never fall back: without a CUDA toolkit the build
+    raises instead of selecting."""
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
+
+    if build.shutil.which("nvcc") or build.os.path.isfile("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("a CUDA toolkit is installed here")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_LIB", None)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    o, d, tm, alive = _random_rays(256, seed=6)
+    rows = k3.analytic_rows(k3.pack_scene_host(_port_scene(_soup(4, 2, 3, 0))), "cpu")
+    before3, before4 = k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        k3._launch(torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tm),
+                   torch.from_numpy(alive), rows, EPSILON)
+    tscene = finalize(tpresets.mesh_showcase(16, 32)[0])
+    leaves = k4.leaf_scene(tscene.packed, "cpu")
+    rays = Rays(torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tm))
+    args = k4.winner_inputs(rays, leaves, EPSILON, torch.from_numpy(alive))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        k4._launch(*args, leaves, EPSILON)
+    assert (k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES) == (before3, before4)

@@ -68,13 +68,21 @@ def test_cornell_packs_as_two_boxes():
     assert packed.counts == (2, 6, 24)
 
 
-def test_tile_bvh_scenes_raise():
-    scene, _ = tpresets.mesh_showcase()
-    assert scene.triangles.count > 256
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        finalize(scene)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        finalize(tpresets.cornell_box()[0], use_bvh=True)
+@pytest.mark.parametrize("preset,use_bvh", [
+    ("mesh_showcase", None),   # 2,208 triangles > 256: auto tile-BVH
+    ("cornell_box", True),     # 24 triangles, tile-BVH on request: one leaf
+])
+def test_tile_bvh_finalize(preset, use_bvh, jax_scenes, monkeypatch):
+    monkeypatch.setenv("RTNW_BVH_CACHE", "")  # the reference caches under $HOME
+    jscene, _ = jax_scenes[preset]
+    tscene, _ = getattr(tpresets, preset)()
+    ref = jfinalize(jscene, use_bvh=use_bvh).packed
+    out = finalize(tscene, use_bvh=use_bvh).packed
+    assert out.leaf_bounds is not None and out.quadh.shape == (20, 1)
+    _assert_packs_equal(ref, out)
+    for name in ("bvh_bounds", "bvh_meta", "leaf_bounds", "leaf_tiles"):
+        np.testing.assert_array_equal(np.asarray(getattr(ref, name)),
+                                      getattr(out, name), err_msg=name)
 
 
 _CUBE = np.asarray(cube_mesh(0.5, (0.0, 0.0, 0.0)), np.float32)
