@@ -4,9 +4,10 @@
 
 Phases, each printing one line or more:
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build: compile K1 (csrc/render_kernel.cu), K3 (csrc/intersect_kernel.cu)
-     and K4 (csrc/bvh_winner_kernel.cu) with nvcc, one process per source;
-     ptxas's registers and spills per kernel; the tile-BVH builder in use;
+  2. build: compile K1, K2 and K0 (csrc/render_kernel.cu), K3
+     (csrc/intersect_kernel.cu) and K4 (csrc/bvh_winner_kernel.cu) with nvcc,
+     one process per source; ptxas's registers and spills per kernel; the
+     tile-BVH builder in use;
   3. K1 vs plain: K1 against its plain torch version on the same CUDA
      tensors, 5 presets at 64x64, 4 spp, 6 bounces, plus Cornell with
      Russian roulette and with the sky off (rtol = atol = 1e-4; smallpt by
@@ -28,7 +29,28 @@ Phases, each printing one line or more:
      integrator.render, counting K3's and K4's launches and checking the
      image;
   9. K3 and K4 times: CUDA events of each kernel on the full-size primary
-     and bounce-2 wavefronts beside its plain version's time.
+     and bounce-2 wavefronts beside its plain version's time;
+ 10. K2 and K0 vs plain: K2 against its plain version on the same CUDA
+     tensors on the Cornell primary wavefront (512x512, one sample, 10
+     bounces) and on the 5 presets at 64x64 (smallpt by the statistical
+     rule), K0 for one bounce with do_rr 0 and 1 (rtol = atol = 1e-4); then
+     K0's main path, a wavefront traced by ten bounce_step calls, counting
+     K0's launches, against K2 on the same rays (1e-4);
+ 11. G-buffer main path: render_gbuffer on Cornell (512x512, 8 spp, 10
+     bounces, fused), which runs K3 and K2, counting their launches; its
+     radiance against render_pass through K1 (1e-4) and its AOVs (hit mask,
+     depth, normal norms, wall albedos);
+ 12. differentiable engine: a fused_bounce=False Cornell render (512x512,
+     2 spp, 10 bounces, the torch wavefront over K3) against K1's (1e-4 but
+     for at most 1 in 10^4 values, on paths that split at a box edge);
+     the gradient of render_gbuffer's depth mean with respect to the
+     sphere centres on the card against the CPU's (rtol 1e-3); a backward
+     through a fused render raises; run_fit and run_fit_mesh for 10 steps
+     at their 96x96, 8 spp configuration, the sphere fit's loss falling;
+ 13. times: K2 and K0 beside their plain versions (CUDA events; plain:
+     host clock), K1 after the bounce refactor, and on the host clock the
+     G-buffer render, the fused_bounce=False render, one fit step and the
+     backward of a 512x512, 10-bounce G-buffer with its peak memory.
 
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and a
 last JSON line {"ok": true, "device": {...}}. Any failure raises and exits
@@ -37,7 +59,10 @@ non-zero; without a CUDA device it exits non-zero before printing results.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import re
+import tempfile
 import time
 
 import numpy as np
@@ -112,6 +137,38 @@ def _check_equal(name, t_k, c_k, t_p, c_p) -> float:
     return err
 
 
+def _ptxas_by_entry(log: str) -> dict:
+    """ptxas -v's register and spill lines, per entry function."""
+    out, entry = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            # a device function's properties (e.g. the trig slow path) end
+            # the entry's lines
+            m = re.search(r"\d([a-z_]+_kernel)E", ln)
+            entry = m.group(1) if m else None
+        elif entry and ("registers" in ln or "spill" in ln):
+            out.setdefault(entry, []).append(ln.split(":", 1)[-1].strip())
+    return out
+
+
+def _check_close(name, out, plain, smallpt=False) -> float:
+    """out vs plain at rtol = atol = 1e-4 (smallpt: under 5% of values off
+    by > 0.2, means within 1e-2), finite and of the same shape. Returns
+    max |diff|."""
+    out, plain = out.cpu().numpy(), plain.cpu().numpy()
+    if out.shape != plain.shape or not np.isfinite(out).all():
+        raise AssertionError(f"{name}: output not finite or misshapen")
+    diff = np.abs(out.astype(np.float64) - plain.astype(np.float64))
+    if smallpt:
+        frac = float((diff > 0.2).mean())
+        if frac >= 0.05:
+            raise AssertionError(f"{name}: {frac:.2%} of values off by > 0.2")
+        np.testing.assert_allclose(out.mean(), plain.mean(), rtol=1e-2, err_msg=name)
+    else:
+        np.testing.assert_allclose(out, plain, rtol=1e-4, atol=1e-4, err_msg=name)
+    return float(diff.max())
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -147,14 +204,14 @@ def main() -> None:
     # 2. build
     t0 = time.perf_counter()
     build.load()
-    print(f"[2 build] K1, K3, K4 built and loaded in {time.perf_counter() - t0:.2f} s "
+    print(f"[2 build] K1, K2, K0, K3, K4 built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s "
           f"(nvcc {build.BUILD_SECONDS:.2f} s, one process per source) -> "
           f"{build.library_path().name} | tile-BVH builder: {builder_name()}",
           flush=True)
     for src, log in sorted(build.BUILD_LOGS.items()):
-        ptxas = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"[2 build] {src} ptxas: {'; '.join(ptxas)}", flush=True)
+        for entry, ptxas in _ptxas_by_entry(log).items():
+            print(f"[2 build] {src} {entry} ptxas: {'; '.join(ptxas)}", flush=True)
 
     # 3. K1 vs plain on the card
     cases = [
@@ -177,25 +234,14 @@ def main() -> None:
         words = threefry.split(threefry.key(7), 4)
         inp = bk.render_inputs(scene.packed, frame, words, cfg, device=dev)
         k1 = bk.render_kernel(inp)
-        plain = bk.render_reference(inp)
-        torch.cuda.synchronize()
-        k1, plain = k1.cpu().numpy(), plain.cpu().numpy()
-        if k1.shape != (cfg.num_pixels, 3) or not np.isfinite(k1).all():
-            raise AssertionError(f"{case}: K1 output not finite or misshapen")
-        diff = np.abs(k1 - plain)
-        if case == "smallpt":
-            frac = float((diff > 0.2).mean())
-            if frac >= 0.05:
-                raise AssertionError(f"smallpt: {frac:.2%} of values off by > 0.2")
-            np.testing.assert_allclose(k1.mean(), plain.mean(), rtol=1e-2)
-            note = f"frac>0.2 {frac:.4%}"
-        else:
-            np.testing.assert_allclose(k1, plain, rtol=1e-4, atol=1e-4,
-                                       err_msg=case)
-            note = "rtol=atol=1e-4"
-        k1_err = max(k1_err, float(diff.max()))
-        print(f"[3 K1 vs plain] {case}: max|diff| {float(diff.max()):.3e} "
-              f"({note}) mean {float(k1.mean()):.6f}", flush=True)
+        if k1.shape != (cfg.num_pixels, 3):
+            raise AssertionError(f"{case}: K1 output {tuple(k1.shape)}")
+        smallpt = case == "smallpt"
+        err = _check_close(f"K1 {case}", k1, bk.render_reference(inp), smallpt)
+        k1_err = max(k1_err, err)
+        note = "statistical rule" if smallpt else "rtol=atol=1e-4"
+        print(f"[3 K1 vs plain] {case}: max|diff| {err:.3e} ({note}) mean "
+              f"{float(k1.mean()):.6f}", flush=True)
 
     cornell, camera = presets.cornell_box()
     cornell = finalize(cornell)
@@ -236,13 +282,7 @@ def main() -> None:
     sub = bk.render_inputs(cornell.packed, frame, words[:plain_spp], cfg, device=dev)
     k1_plain_ms, plain = _host_ms(lambda: bk.render_reference(sub))
     k1_plain_ms *= 128 / plain_spp
-    k1_out = bk.render_kernel(sub).cpu().numpy()
-    plain = plain.cpu().numpy()
-    if k1_out.shape != (cfg.num_pixels, 3) or not np.isfinite(k1_out).all():
-        raise AssertionError("headline: K1 output not finite or misshapen")
-    np.testing.assert_allclose(k1_out, plain, rtol=1e-4, atol=1e-4,
-                               err_msg="headline")
-    head_err = float(np.abs(k1_out - plain).max())
+    head_err = _check_close("K1 headline", bk.render_kernel(sub), plain)
     k1_err = max(k1_err, head_err)
     print(f"[5 K1 plain time] headline config: K1 {k1_ms:.3f} ms (CUDA events, "
           f"mean of 3) | plain {k1_plain_ms:.1f} ms (host clock, {plain_spp} spp "
@@ -365,6 +405,227 @@ def main() -> None:
               f"plain {k4p_ms:.3f} ms | work-list build {wl_ms:.3f} ms "
               f"(CUDA events; plain: host clock, one run) | {card}", flush=True)
 
+    # 10. K2 and K0 against their plain versions; K0's main path
+    from raytracingthenextweekcuda_tpu_torch.apps import fit
+    from raytracingthenextweekcuda_tpu_torch.models.scene import with_leaves
+    from raytracingthenextweekcuda_tpu_torch.ops import rng
+
+    head = RenderConfig(width=512, height=512, spp=8, bounces=10, spp_per_pass=8)
+    frame = cam.derive(camera, head.aspect_ratio)
+    key = threefry.key(head.seed)
+    rays, ctx = cam.generate_rays(frame, threefry.split(key, 1)[0], head.width,
+                                  head.height, device=dev)
+    path_inp = bk.path_inputs(cornell.packed, rays, ctx, head)
+    k2_out = bk.path_kernel(path_inp)
+    k2_err = _check_close("K2 cornell 512x512", k2_out, bk.path_reference(path_inp))
+    print(f"[10 K2 vs plain] cornell primary wavefront 512x512, 1 sample, 10 "
+          f"bounces: max|diff| {k2_err:.3e} (rtol=atol=1e-4) mean "
+          f"{float(k2_out.mean()):.6f}", flush=True)
+    for case, preset, _ in cases[:5]:
+        scene, pcam = preset()
+        scene = finalize(scene, use_bvh=False)
+        cfg = RenderConfig(width=64, height=64, spp=1, bounces=10)
+        prays, pctx = cam.generate_rays(cam.derive(pcam, 1.0),
+                                        threefry.split(threefry.key(7), 1)[0],
+                                        64, 64, device=dev)
+        err = _check_close(f"K2 {case}", bk.path_trace(scene.packed, prays, pctx, cfg),
+                           bk.path_trace_reference(scene.packed, prays, pctx, cfg),
+                           smallpt=case == "smallpt")
+        k2_err = max(k2_err, err)
+        print(f"[10 K2 vs plain] {case} 64x64, 10 bounces: max|diff| {err:.3e}",
+              flush=True)
+
+    rr_cfg = dataclasses.replace(head, russian_roulette=True, rr_start_bounce=0)
+    state = bk.planar_state(rays)
+    state = bk.bounce_step_reference(
+        cornell.packed, state,
+        rng.bounce_uniforms(ctx.pixel_id, ctx.base0, ctx.base1, 0), 0, rr_cfg)
+    u4 = rng.bounce_uniforms(ctx.pixel_id, ctx.base0, ctx.base1, 1)
+    k0_err = 0.0
+    for do_rr in (0, 1):
+        k0 = bk.bounce_step(cornell.packed, state, u4, do_rr, rr_cfg)
+        plain = bk.bounce_step_reference(cornell.packed, state, u4, do_rr, rr_cfg)
+        if not torch.equal(k0[7], plain[7]):
+            raise AssertionError(f"K0 do_rr={do_rr}: alive flags differ")
+        err = max(_check_close(f"K0 do_rr={do_rr} row {r}", k0[r], plain[r])
+                  for r in range(14))
+        k0_err = max(k0_err, err)
+        print(f"[10 K0 vs plain] cornell 512x512, bounce 2, do_rr={do_rr}: "
+              f"alive equal ({int(k0[7].sum())} of {rays.count} go on), "
+              f"max|diff| {err:.3e} (rtol=atol=1e-4)", flush=True)
+    bk.BOUNCE_LAUNCHES = 0
+    carry = bk.planar_state(rays)
+    for b in range(head.bounces):
+        carry = bk.bounce_step(cornell.packed, carry,
+                               rng.bounce_uniforms(ctx.pixel_id, ctx.base0,
+                                                   ctx.base1, b),
+                               b >= head.rr_start_bounce, head)
+    k0_launches = bk.BOUNCE_LAUNCHES
+    if k0_launches != head.bounces:
+        raise AssertionError(f"ten bounce_step calls launched K0 {k0_launches} times")
+    err = _check_close("ten K0 steps vs K2", torch.stack(carry[11:14], 1), k2_out)
+    k0_err = max(k0_err, err)
+    print(f"[10 K0 main path] {head.bounces} bounce_step calls on the 512x512 "
+          f"wavefront: K0 launches {k0_launches} | radiance vs K2: max|diff| "
+          f"{err:.3e} (rtol=atol=1e-4)", flush=True)
+
+    # 11. G-buffer main path: K3 and K2
+    bk.PATH_LAUNCHES = bk.KERNEL_LAUNCHES = k3.KERNEL_LAUNCHES = 0
+    gbuf = integrator.render_gbuffer(cornell, camera, key, head, head.spp, device=dev)
+    k2_launches, k3_gb, k1_gb = bk.PATH_LAUNCHES, k3.KERNEL_LAUNCHES, bk.KERNEL_LAUNCHES
+    if k2_launches != head.spp or k3_gb < head.spp or k1_gb:
+        raise AssertionError(f"the G-buffer render launched K2 {k2_launches}, "
+                             f"K3 {k3_gb} and K1 {k1_gb} times")
+    via_k1 = integrator.render_pass(cornell, camera, key, head, head.spp, device=dev)
+    err = _check_close("G-buffer radiance vs K1", gbuf["radiance"], via_k1)
+    k2_err = max(k2_err, err)
+    mask = gbuf["hit_mask"].cpu().numpy()
+    depth = gbuf["depth"].cpu().numpy()
+    norms = np.linalg.norm(gbuf["normal"].cpu().numpy(), axis=-1)
+    albedo = gbuf["albedo"].cpu().numpy()
+    left = albedo[170:340, 5:40].reshape(-1, 3).mean(0)
+    right = albedo[170:340, -40:-5].reshape(-1, 3).mean(0)
+    if not ((mask[64:448, 64:448] == 1.0).all() and (depth[mask > 0] > 0).all()
+            and norms.max() <= 1.0 + 1e-4 and left[0] > left[2]
+            and right[2] > right[0]):
+        raise AssertionError(f"G-buffer AOVs wrong: hit mask min "
+                             f"{mask[64:448, 64:448].min()}, depth min "
+                             f"{depth[mask > 0].min()}, normal norm max "
+                             f"{norms.max()}, albedo left {left} right {right}")
+    print(f"[11 G-buffer main path] cornell 512x512, 8 spp, 10 bounces: K2 "
+          f"launches {k2_launches} K3 launches {k3_gb} | radiance vs render_pass "
+          f"(K1): max|diff| {err:.3e} (rtol=atol=1e-4) | hit mask mean "
+          f"{mask.mean():.4f}, depth {depth.min():.4f}..{depth.max():.4f}, normal "
+          f"norm max {norms.max():.6f}, albedo left {left.round(3).tolist()} "
+          f"right {right.round(3).tolist()}", flush=True)
+
+    # 12. the differentiable engine
+    wf_cfg = RenderConfig(width=512, height=512, spp=2, bounces=10,
+                          fused_bounce=False)
+    bk.PATH_LAUNCHES = bk.KERNEL_LAUNCHES = k3.KERNEL_LAUNCHES = 0
+    wf_ms, wf_img = _host_ms(lambda: integrator.render_pass(cornell, camera, key,
+                                                            wf_cfg, 2, device=dev))
+    k3_wf, k12_wf = k3.KERNEL_LAUNCHES, bk.KERNEL_LAUNCHES + bk.PATH_LAUNCHES
+    if k3_wf <= 0 or k12_wf:
+        raise AssertionError(f"the wavefront render launched K3 {k3_wf} and "
+                             f"K1/K2 {k12_wf} times")
+    fused_img = integrator.render_pass(
+        cornell, camera, key, dataclasses.replace(wf_cfg, fused_bounce=True), 2,
+        device=dev)
+    # The two engines intersect different forms of the scene: K1 tests the
+    # Cornell cubes as two oriented boxes (slabs), the wavefront as their 24
+    # Möller-Trumbore triangles through K3 and the torch recompute, so hit
+    # points differ by ulps and a path that grazes a box edge or a plane's
+    # extent can split (5 of 524,288 sample paths at this size, traced on
+    # the CPU). Values are held at 1e-4 but for at most 1 in 10^4 of them,
+    # and the image means at 1e-4.
+    wf, k1_img = wf_img.cpu().numpy(), fused_img.cpu().numpy()
+    if not np.isfinite(wf).all():
+        raise AssertionError("wavefront render not finite")
+    off = ~np.isclose(wf, k1_img, rtol=1e-4, atol=1e-4)
+    if off.mean() > 1e-4:
+        raise AssertionError(f"wavefront vs K1: {int(off.sum())} of {off.size} "
+                             f"values apart")
+    np.testing.assert_allclose(wf.mean(), k1_img.mean(), rtol=1e-4)
+    within = float(np.abs(wf - k1_img)[~off].max())
+    print(f"[12 wavefront] cornell fused_bounce=False 512x512, 2 spp, 10 bounces: "
+          f"K3 launches {k3_wf} | vs K1: {int(off.sum())} of {off.size} values "
+          f"apart by > 1e-4 (split paths; max {float(np.abs(wf - k1_img).max()):.3e}),"
+          f" the rest max|diff| {within:.3e}, means {float(wf.mean()):.6f} vs "
+          f"{float(k1_img.mean()):.6f} | {wf_ms:.1f} ms host", flush=True)
+
+    def depth_grad(device, size, with_radiance=False):
+        c = torch.tensor(np.asarray(cornell.spheres.center0), device=device,
+                         requires_grad=True)
+        live = with_leaves(cornell, {"spheres.center0": c, "spheres.center1": c})
+        cfg = RenderConfig(width=size, height=size, spp=2, bounces=10,
+                           fused_bounce=False)
+        g = integrator.render_gbuffer(live, camera, key, cfg, 2, device=device)
+        loss = g["depth"].mean()
+        if with_radiance:
+            loss = loss + g["radiance"].mean()
+        loss.backward()
+        return c.grad
+
+    g_card = depth_grad(dev, 128).cpu().numpy()
+    g_cpu = depth_grad(torch.device("cpu"), 128).numpy()
+    if not np.isfinite(g_card).all() or np.abs(g_card).max() == 0:
+        raise AssertionError(f"depth gradient on the card: {g_card}")
+    np.testing.assert_allclose(g_card, g_cpu, rtol=1e-3, atol=1e-6)
+    grad_err = float(np.abs(g_card - g_cpu).max())
+    print(f"[12 backward] d mean(depth) / d sphere centres, cornell 128x128, 2 "
+          f"spp, 10 bounces: card {g_card.tolist()} | vs CPU max|diff| "
+          f"{grad_err:.3e} (rtol 1e-3)", flush=True)
+    c = torch.tensor(np.asarray(cornell.spheres.center0), device=dev,
+                     requires_grad=True)
+    live = with_leaves(cornell, {"spheres.center0": c, "spheres.center1": c})
+    img = integrator.render_pass(live, camera, key,
+                                 RenderConfig(width=64, height=64, spp=1, bounces=3),
+                                 1, device=dev)
+    try:
+        img.sum().backward()
+    except NotImplementedError as e:
+        if "fused_bounce=False" not in str(e):
+            raise
+        print(f"[12 backward] through K1 raises: {e}", flush=True)
+    else:
+        raise AssertionError("a backward through a fused render did not raise")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        losses = []
+        fit_ms, rc = _host_ms(lambda: fit.run_fit(steps=10, out=f"{tmp}/fit.png",
+                                                  device=dev, verbose=False,
+                                                  losses=losses))
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"run_fit losses do not fall: {losses}")
+        print(f"[12 fit] run_fit 96x96, 8 spp, 4 bounces, 10 steps: loss "
+              f"{losses[0]:.5f} -> {losses[-1]:.5f} ({fit_ms:.0f} ms host, "
+              f"rc {rc} for halving)", flush=True)
+        mesh_losses = []
+        mfit_ms, rc = _host_ms(lambda: fit.run_fit_mesh(
+            steps=10, out=f"{tmp}/fit_mesh.png", device=dev, verbose=False,
+            losses=mesh_losses))
+        if not np.isfinite(mesh_losses).all():
+            raise AssertionError(f"run_fit_mesh losses: {mesh_losses}")
+        print(f"[12 fit] run_fit_mesh 96x96, 8 spp, 4 bounces, 10 steps: loss "
+              f"{mesh_losses[0]:.5f} -> {mesh_losses[-1]:.5f} ({mfit_ms:.0f} ms "
+              f"host, rc {rc} for halving)", flush=True)
+
+    # 13. times
+    k2_ms = _event_ms(lambda: bk.path_kernel(path_inp), reps=10)
+    k2p_ms, _ = _host_ms(lambda: bk.path_reference(path_inp))
+    k0_inp = bk.bounce_inputs(cornell.packed, state, u4, 1, rr_cfg)
+    k0_ms = _event_ms(lambda: bk.bounce_kernel(k0_inp), reps=10)
+    k0p_ms, _ = _host_ms(lambda: bk.bounce_reference(k0_inp))
+    gb_ms, _ = _host_ms(lambda: integrator.render_gbuffer(cornell, camera, key, head,
+                                                          head.spp, device=dev))
+    fcfg = fit.fit_config(96, 96, 8)
+    target = integrator.render_gbuffer(
+        fit.make_scene(torch.tensor(fit.TRUE_CENTERS, device=dev),
+                       torch.tensor(fit.TRUE_ALBEDOS, device=dev)),
+        fit.fit_camera(), key, fcfg, 8, device=dev)
+    centers = torch.tensor(fit.INIT_CENTERS, device=dev, requires_grad=True)
+    albedos = torch.tensor(fit.INIT_ALBEDOS, device=dev, requires_grad=True)
+    step_ms, _ = _host_ms(lambda: fit.fit_loss(centers, albedos, target,
+                                               fit.fit_camera(), key, fcfg, 8,
+                                               dev).backward())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    bwd_ms, _ = _host_ms(lambda: depth_grad(dev, 512, with_radiance=True))
+    peak_gib = (torch.cuda.max_memory_allocated(dev) - base_mem) / 2**30
+    print(f"[13 times] K2 {k2_ms:.4f} ms vs plain {k2p_ms:.1f} ms (cornell "
+          f"512x512 primary wavefront, 10 bounces) | K0 {k0_ms:.4f} ms vs plain "
+          f"{k0p_ms:.2f} ms (one bounce, 262144 rays) | K1 after the refactor "
+          f"{k1_ms:.3f} ms (headline, phase 5) | CUDA events; plain: host clock, "
+          f"one run | {card}", flush=True)
+    print(f"[13 times] host clock: G-buffer 512x512, 8 spp, 10 bounces "
+          f"{gb_ms:.1f} ms | fused_bounce=False render 512x512, 2 spp, 10 "
+          f"bounces {wf_ms:.1f} ms | fit step (96x96, 8 spp, forward and "
+          f"backward) {step_ms:.1f} ms | G-buffer 512x512, 2 spp, 10 bounces "
+          f"forward and backward {bwd_ms:.1f} ms, peak memory {peak_gib:.3f} GiB "
+          f"above the {base_mem / 2**30:.3f} GiB held before | {card}", flush=True)
+
     k3_ms, k3p_ms, k4_ms, k4p_ms = times["primary"]
     print(json.dumps({"kernels": [
         {"name": "K1 render_kernel", "route": "cuda",
@@ -372,6 +633,16 @@ def main() -> None:
          "replaces": "raytracingthenextweekcuda_tpu/ops/pallas/bounce_kernel.py:1466",
          "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": k1_plain_ms},
+        {"name": "K2 path_kernel", "route": "cuda",
+         "source": "raytracingthenextweekcuda_tpu_torch/csrc/render_kernel.cu",
+         "replaces": "raytracingthenextweekcuda_tpu/ops/pallas/bounce_kernel.py:1392",
+         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
+         "plain_ms": k2p_ms},
+        {"name": "K0 bounce_kernel", "route": "cuda",
+         "source": "raytracingthenextweekcuda_tpu_torch/csrc/render_kernel.cu",
+         "replaces": "raytracingthenextweekcuda_tpu/ops/pallas/bounce_kernel.py:1303",
+         "launches": k0_launches, "max_abs_err": k0_err, "ms": k0_ms,
+         "plain_ms": k0p_ms},
         {"name": "K3 closest_hit_kernel", "route": "cuda",
          "source": "raytracingthenextweekcuda_tpu_torch/csrc/intersect_kernel.cu",
          "replaces": "raytracingthenextweekcuda_tpu/ops/pallas/intersect_kernel.py:443",

@@ -4,9 +4,11 @@ raytracingthenextweekcuda_tpu/cli.py):
     rtnw-torch render --preset cornell --width 512 --height 512 --spp 32 --out render.png
     rtnw-torch bench  [--width 512 --height 512 --spp 128 --bounces 10]
     rtnw-torch bench --mesh   # tile-BVH mesh path, 512x512, 32 spp, 10 bounces
+    rtnw-torch fit    [--steps 60] [--out fit.png]       # inverse rendering
+    rtnw-torch fit --mesh [--steps 40] [--out fit_mesh.png]
 
-Both run on `--device` (default cuda); `render --device cpu` uses the
-kernels' plain torch versions.
+All run on `--device` (default cuda); `--device cpu` uses the kernels'
+plain torch versions.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ def cmd_render(args) -> int:
     from raytracingthenextweekcuda_tpu_torch.models.scene import finalize
 
     scene, camera = _build_scene(args.preset)
-    scene = finalize(scene, use_bvh=False)
+    scene = finalize(scene)  # a tile-BVH above 256 triangles
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        bounces=args.bounces)
     device = torch.device(args.device)
@@ -81,6 +83,16 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def cmd_fit(args) -> int:
+    from raytracingthenextweekcuda_tpu_torch.apps.fit import run_fit, run_fit_mesh
+
+    if args.mesh:
+        return run_fit_mesh(steps=40 if args.steps is None else args.steps,
+                            out=args.out or "fit_mesh.png", device=args.device)
+    return run_fit(steps=60 if args.steps is None else args.steps,
+                   out=args.out or "fit.png", device=args.device)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="rtnw-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -106,6 +118,19 @@ def main(argv=None) -> int:
     pb.add_argument("--bounces", type=int, default=10)
     pb.add_argument("--device", default="cuda")
     pb.set_defaults(fn=cmd_bench)
+
+    pf = sub.add_parser("fit", help="inverse rendering through the "
+                        "differentiable wavefront (96x96, 8 spp, 4 bounces)")
+    pf.add_argument("--mesh", action="store_true",
+                    help="fit a triangle mesh's per-axis scale through the "
+                         "tile-BVH path instead of two spheres")
+    pf.add_argument("--steps", type=int, default=None,
+                    help="default 60, or 40 with --mesh")
+    pf.add_argument("--out", default=None,
+                    help="target and fit side by side (default fit.png, or "
+                         "fit_mesh.png with --mesh)")
+    pf.add_argument("--device", default="cuda")
+    pf.set_defaults(fn=cmd_fit)
 
     args = p.parse_args(argv)
     return args.fn(args)

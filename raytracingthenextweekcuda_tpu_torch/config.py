@@ -33,9 +33,10 @@ class RenderConfig:
     sky_background: bool = True
     # Root of the key tree (threefry key words, ops/threefry.py).
     seed: int = 1984
-    # Render with the forward engines (K1, or the sorted wavefront for
-    # tile-BVH scenes). False selects the differentiable engine, which the
-    # port does not have yet, and raises (see models/integrator.py).
+    # Render finalized scenes with the forward-only kernels (K1 per pass, K2
+    # per wavefront). False selects the differentiable torch wavefront
+    # (models/integrator.py); tile-BVH scenes take the sorted wavefront,
+    # which is differentiable, either way.
     fused_bounce: bool = True
     # Tile-BVH scenes: sort the wavefront by the coherence key before
     # every `sort_stride`-th bounce from the second on (models/integrator.

@@ -1,17 +1,25 @@
-// K1: the whole-render kernel of the port, for Hopper (sm_90a).
+// The bounce kernels of the port, for Hopper (sm_90a): K1, K2 and K0.
 //
-// Replaces the TPU kernel raytracingthenextweekcuda_tpu/ops/pallas/
-// bounce_kernel.py::_render_kernel (with its helpers _raygen_core,
-// _trace_sample and _bounce_core), launched there by _run_render for
-// render_samples. One thread renders one pixel: for each sample it
-// generates the thin-lens primary ray from pcg4d and follows it through up
-// to `bounces` bounces (closest hit over spheres, planes, Havel triangles,
-// Havel quads and oriented boxes, in that order; the 8-kind BSDF; sky,
-// additive emission and emission termination; optional Russian roulette),
-// summing the radiance in registers and writing it once.
+// They replace three TPU kernels of raytracingthenextweekcuda_tpu/ops/
+// pallas/bounce_kernel.py, which share one bounce body (_bounce_core) as
+// these share `bounce`:
+// - K1 `render_kernel` replaces _render_kernel (with _raygen_core and
+//   _trace_sample), launched there by _run_render for render_samples. One
+//   thread renders one pixel: for each sample it generates the thin-lens
+//   primary ray from pcg4d and follows it through up to `bounces` bounces,
+//   summing the radiance in registers and writing it once.
+// - K2 `path_kernel` replaces _path_kernel (_run_path, path_trace): one
+//   thread follows one supplied ray through the whole bounce loop.
+// - K0 `bounce_kernel` replaces _bounce_kernel (_run_bounce, bounce_step):
+//   one thread advances one ray of the planar carry by one bounce, on
+//   uniforms read from memory.
+// A bounce is the closest hit over spheres, planes, Havel triangles, Havel
+// quads and oriented boxes, in that order; the 8-kind BSDF; sky, additive
+// emission and emission termination; optional Russian roulette.
 //
-// A thread leaves its bounce loop as soon as its own path dies. The TPU
-// kernel runs a 1024-ray block until every ray in it has died; a dead
+// A thread of K1 or K2 leaves its bounce loop as soon as its own path
+// dies. The TPU kernels run a 1024-ray block until every ray in it has
+// died; a dead
 // ray's bounce there adds nothing and keeps its state, so the two agree.
 // The material kinds are a per-thread switch; for the winning kind it
 // gives what the TPU kernel's branchless select chain gives, including the
@@ -238,6 +246,234 @@ __device__ __forceinline__ void frame_lobe(float ax, float ay, float az, float c
   gz = t0z * cp + t1z * sp + az * cos_t;
 }
 
+// The state of one path between bounces.
+struct Path {
+  float ox, oy, oz, dx, dy, dz;  // ray
+  float tpx, tpy, tpz;           // throughput
+  float rx, ry, rz;              // radiance
+};
+
+struct Flags {
+  bool sky, rr, add_emission, lambertian_used;
+};
+
+__device__ __forceinline__ Flags decode_flags(int flags) {
+  Flags f;
+  f.sky = flags & kFlagSky;
+  f.rr = flags & kFlagRR;
+  f.add_emission = flags & kFlagEmission;
+  f.lambertian_used = (flags >> 8) & (1 << kLambertian);
+  return f;
+}
+
+// One bounce of a live path at shutter time `tm` with the bounce's four
+// uniforms: closest hit, BSDF, radiance bookkeeping and, when `do_rr`,
+// Russian roulette. Returns whether the path goes on. A path that ends
+// keeps its ray; its throughput is the incoming one, times the
+// attenuation when Russian roulette ended it (as the plain version's).
+__device__ __forceinline__ bool bounce(const Scene& s, Path& p, float tm,
+                                       float v0, float v1, float v2, float v3,
+                                       bool do_rr, const Flags& fl, float tmin) {
+  const float ox = p.ox, oy = p.oy, oz = p.oz;
+  const float dx = p.dx, dy = p.dy, dz = p.dz;
+  Hit h = closest_hit(s, ox, oy, oz, dx, dy, dz, tm, tmin);
+  const bool valid = h.kind >= 0.0f;
+  const int kind = (int)h.kind;
+
+  // Face the normal toward the ray.
+  const bool front = dx * h.nx + dy * h.ny + dz * h.nz < kFltEps;
+  const float sgn = front ? 1.0f : -1.0f;
+  const float nx = h.nx * sgn, ny = h.ny * sgn, nz = h.nz * sgn;
+  const float il = rsqrt_f(fmaxf(dx * dx + dy * dy + dz * dz, 1e-30f));
+  const float ux = dx * il, uy = dy * il, uz = dz * il;
+
+  bool scattered = kind != kEmission;
+  float sdx = nx, sdy = ny, sdz = nz;
+  float atr = h.ar, atg = h.ag, atb = h.ab;
+  if (valid) {
+    const float phi = kTwoPi * v1;
+    const float cos_phi = cos_f(phi), sin_phi = sin_f(phi);
+    const float u_dot_n = ux * nx + uy * ny + uz * nz;
+    const float mx = ux - 2.0f * u_dot_n * nx;
+    const float my = uy - 2.0f * u_dot_n * ny;
+    const float mz = uz - 2.0f * u_dot_n * nz;
+    const float az_z = 1.0f - 2.0f * v0;
+    const float az_r = sqrt_f(fmaxf(0.0f, 1.0f - az_z * az_z));
+    const float avx = az_r * cos_phi, avy = az_r * sin_phi, avz = az_z;
+
+    switch (kind) {
+      case kMetal: {
+        float fuzz = fminf(h.par, 1.0f);
+        float ballr = exp_f(log_f(fmaxf(v2, 1e-12f)) / 3.0f);
+        float bx = avx * ballr, by = avy * ballr, bz = avz * ballr;
+        float mrx = mx + fuzz * bx, mry = my + fuzz * by, mrz = mz + fuzz * bz;
+        bool ok = (mrx * nx + mry * ny + mrz * nz) > 0.0f;
+        sdx = ok ? mrx : mx; sdy = ok ? mry : my; sdz = ok ? mrz : mz;
+        normalize3(sdx, sdy, sdz);
+        float okf = ok ? 1.0f : 0.0f;
+        atr = h.ar * okf; atg = h.ag * okf; atb = h.ab * okf;
+        scattered = ok;
+        break;
+      }
+      case kDielectric: {
+        float ior = h.par > 0.0f ? h.par : 1.5f;
+        float eta = front ? 1.0f / ior : ior;
+        float cos_t = fminf(-(ux * nx + uy * ny + uz * nz), 1.0f);
+        float sin_t = sqrt_f(fmaxf(0.0f, 1.0f - cos_t * cos_t));
+        bool cannot = eta * sin_t > 1.0f;
+        float r0s = (1.0f - eta) / (1.0f + eta);
+        r0s = r0s * r0s;
+        float omc = 1.0f - cos_t;
+        float omc2 = omc * omc;
+        float rp = r0s + (1.0f - r0s) * omc2 * omc2 * omc;
+        bool choose = cannot || rp > v2;
+        float px = eta * (ux + cos_t * nx);
+        float py = eta * (uy + cos_t * ny);
+        float pz = eta * (uz + cos_t * nz);
+        float k = 1.0f - (px * px + py * py + pz * pz);
+        float rpar = k > 0.0f ? sqrt_f(k) : 0.0f;
+        sdx = choose ? mx : px - rpar * nx;
+        sdy = choose ? my : py - rpar * ny;
+        sdz = choose ? mz : pz - rpar * nz;
+        normalize3(sdx, sdy, sdz);
+        atr = atg = atb = 1.0f;
+        break;
+      }
+      case kPhongMetal: {
+        float pc = exp_f(log_f(fmaxf(v0, 1e-12f)) / (fmaxf(h.par, 0.0f) + 1.0f));
+        float ax = mx, ay = my, az = mz;
+        normalize3(ax, ay, az);
+        frame_lobe(ax, ay, az, pc, cos_phi, sin_phi, sdx, sdy, sdz);
+        break;
+      }
+      case kSpecular: {
+        sdx = mx; sdy = my; sdz = mz;
+        normalize3(sdx, sdy, sdz);
+        break;
+      }
+      case kCoat: {
+        bool spec = v2 < 0.05f;
+        float ccos = sqrt_f(fmaxf(0.0f, 1.0f - v0));
+        frame_lobe(nx, ny, nz, ccos, cos_phi, sin_phi, sdx, sdy, sdz);
+        if (spec) { sdx = mx; sdy = my; sdz = mz; }
+        float specf = spec ? 1.0f : 0.0f;
+        atr = specf + (1.0f - specf) * h.ar;
+        atg = specf + (1.0f - specf) * h.ag;
+        atb = specf + (1.0f - specf) * h.ab;
+        break;
+      }
+      case kRefraction: {
+        float nt = h.par > 0.0f ? h.par : 1.5f;
+        float nnt = front ? 1.0f / nt : nt;
+        float ddn = ux * nx + uy * ny + uz * nz;
+        float cos2t = 1.0f - nnt * nnt * (1.0f - ddn * ddn);
+        bool tir = cos2t < 0.0f;
+        float cos_t = fminf(-ddn, 1.0f);
+        float px = nnt * (ux + cos_t * nx);
+        float py = nnt * (uy + cos_t * ny);
+        float pz = nnt * (uz + cos_t * nz);
+        float k = 1.0f - (px * px + py * py + pz * pz);
+        float rpar = k > 0.0f ? sqrt_f(k) : 0.0f;
+        float tdx = px - rpar * nx, tdy = py - rpar * ny, tdz = pz - rpar * nz;
+        normalize3(tdx, tdy, tdz);
+        float q = (nt - 1.0f) / (nt + 1.0f);
+        float r0s = q * q;
+        float c1m = 1.0f - (front ? -ddn : tdx * nx + tdy * ny + tdz * nz);
+        float c1m2 = c1m * c1m;
+        float re = r0s + (1.0f - r0s) * c1m2 * c1m2 * c1m;
+        float prob = 0.25f + 0.5f * re;
+        bool choose = tir || v2 < prob;
+        if (choose) {
+          sdx = mx; sdy = my; sdz = mz;
+          normalize3(sdx, sdy, sdz);
+        } else {
+          sdx = tdx; sdy = tdy; sdz = tdz;
+        }
+        float w = tir ? 1.0f : (choose ? re / prob : (1.0f - re) / (1.0f - prob));
+        atr = h.ar * w; atg = h.ag * w; atb = h.ab * w;
+        break;
+      }
+      case kEmission:
+        break;  // terminates below
+      default: {  // Lambertian (and any kind without its own lobe)
+        if (fl.lambertian_used) {
+          float lrx = nx + avx, lry = ny + avy, lrz = nz + avz;
+          if (fabsf(lrx) < 1e-8f && fabsf(lry) < 1e-8f && fabsf(lrz) < 1e-8f) {
+            lrx = nx; lry = ny; lrz = nz;
+          }
+          normalize3(lrx, lry, lrz);
+          sdx = lrx; sdy = lry; sdz = lrz;
+        }
+        break;
+      }
+    }
+  }
+
+  // ---- radiance bookkeeping ----
+  if (!valid) {
+    if (fl.sky) {
+      float t_sky = 0.5f * (uy + 1.0f);
+      p.rx = p.rx + p.tpx * (1.0f + t_sky * (float)(0.5 - 1.0));
+      p.ry = p.ry + p.tpy * (1.0f + t_sky * (float)(0.7 - 1.0));
+      p.rz = p.rz + p.tpz * (1.0f + t_sky * (float)(1.0 - 1.0));
+    }
+    return false;
+  }
+  if (fl.add_emission) {
+    p.rx = p.rx + p.tpx * h.er;
+    p.ry = p.ry + p.tpy * h.eg;
+    p.rz = p.rz + p.tpz * h.eb;
+  }
+  if (kind == kEmission) {
+    p.rx = p.rx + p.tpx * h.ar * h.par;
+    p.ry = p.ry + p.tpy * h.ag * h.par;
+    p.rz = p.rz + p.tpz * h.ab * h.par;
+  }
+  if (!scattered) return false;
+  p.tpx = p.tpx * atr; p.tpy = p.tpy * atg; p.tpz = p.tpz * atb;
+  if (do_rr) {
+    float pr = fminf(fmaxf(fmaxf(fmaxf(p.tpx, p.tpy), p.tpz), 0.05f), 1.0f);
+    if (!(v3 < pr)) return false;
+    float inv_p = 1.0f / pr;
+    p.tpx = p.tpx * inv_p; p.tpy = p.tpy * inv_p; p.tpz = p.tpz * inv_p;
+  }
+  p.ox = ox + h.t * dx; p.oy = oy + h.t * dy; p.oz = oz + h.t * dz;
+  p.dx = sdx; p.dy = sdy; p.dz = sdz;
+  return true;
+}
+
+// The packed scene rows, copied into shared memory when they fit (see the
+// file comment); every thread of the block must call this.
+__device__ __forceinline__ Scene load_scene(const float* scene_g, float* smem,
+                                            int ns, int np, int nt, int nq,
+                                            int nb, int n_floats, int use_smem) {
+  const float* base = scene_g;
+  if (use_smem) {
+    for (int k = threadIdx.x; k < n_floats; k += blockDim.x) smem[k] = scene_g[k];
+    __syncthreads();
+    base = smem;
+  }
+  Scene s;
+  s.ns = ns; s.np = np; s.nt = nt; s.nq = nq; s.nb = nb;
+  s.sph = base;
+  s.pla = s.sph + kSphRows * ns;
+  s.tri = s.pla + kPlaRows * np;
+  s.quad = s.tri + kHavRows * nt;
+  s.box = s.quad + kHavRows * nq;
+  return s;
+}
+
+// The four uniforms of bounce `b` (0-based) of pixel `p`: pcg4d(p, b0,
+// b + 1, b1).
+__device__ __forceinline__ void bounce_uniforms(uint32_t p, uint32_t b0,
+                                                uint32_t b1, int b, float& v0,
+                                                float& v1, float& v2, float& v3) {
+  uint32_t c0 = p, c1 = b0, c2 = (uint32_t)(b + 1), c3 = b1;
+  pcg4d(c0, c1, c2, c3);
+  v0 = to_uniform(c0); v1 = to_uniform(c1); v2 = to_uniform(c2); v3 = to_uniform(c3);
+}
+
+// K1: raygen plus every sample and bounce of one pixel per thread.
 __global__ void __launch_bounds__(kThreads)
 render_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
               int nb, int n_floats, int use_smem, const float* __restrict__ frame,
@@ -246,27 +482,10 @@ render_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
               int bounces, int rr_start, float tmin, int flags,
               float* __restrict__ out) {
   extern __shared__ float smem[];
-  const float* base = scene_g;
-  if (use_smem) {
-    for (int k = threadIdx.x; k < n_floats; k += blockDim.x) smem[k] = scene_g[k];
-    __syncthreads();
-    base = smem;
-  }
+  const Scene s = load_scene(scene_g, smem, ns, np, nt, nq, nb, n_floats, use_smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-
-  Scene s;
-  s.ns = ns; s.np = np; s.nt = nt; s.nq = nq; s.nb = nb;
-  s.sph = base;
-  s.pla = s.sph + kSphRows * ns;
-  s.tri = s.pla + kPlaRows * np;
-  s.quad = s.tri + kHavRows * nt;
-  s.box = s.quad + kHavRows * nq;
-
-  const bool sky = flags & kFlagSky;
-  const bool rr = flags & kFlagRR;
-  const bool add_emission = flags & kFlagEmission;
-  const bool lambertian_used = (flags >> 8) & (1 << kLambertian);
+  const Flags fl = decode_flags(flags);
 
   float f[21];
 #pragma unroll
@@ -294,195 +513,107 @@ render_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
     float lphi = kTwoPi * u3;
     float disk_x = f[18] * lr * cos_f(lphi);
     float disk_y = f[18] * lr * sin_f(lphi);
-    float ox = f[0] + disk_x * f[12] + disk_y * f[15];
-    float oy = f[1] + disk_x * f[13] + disk_y * f[16];
-    float oz = f[2] + disk_x * f[14] + disk_y * f[17];
-    float dx = f[3] + dxs * f[6] + dys * f[9] - ox;
-    float dy = f[4] + dxs * f[7] + dys * f[10] - oy;
-    float dz = f[5] + dxs * f[8] + dys * f[11] - oz;
+    Path path;
+    path.ox = f[0] + disk_x * f[12] + disk_y * f[15];
+    path.oy = f[1] + disk_x * f[13] + disk_y * f[16];
+    path.oz = f[2] + disk_x * f[14] + disk_y * f[17];
+    float dx = f[3] + dxs * f[6] + dys * f[9] - path.ox;
+    float dy = f[4] + dxs * f[7] + dys * f[10] - path.oy;
+    float dz = f[5] + dxs * f[8] + dys * f[11] - path.oz;
     float nsq = dx * dx + dy * dy + dz * dz;
     float ninv = nsq > 0.0f ? 1.0f / sqrt_f(nsq) : 0.0f;
-    dx = dx * ninv; dy = dy * ninv; dz = dz * ninv;
+    path.dx = dx * ninv; path.dy = dy * ninv; path.dz = dz * ninv;
     const float tm = u4 * (f[20] - f[19]) + f[19];
+    path.tpx = path.tpy = path.tpz = 1.0f;
+    path.rx = path.ry = path.rz = 0.0f;
 
-    // ---- bounces ----
-    float tpx = 1.0f, tpy = 1.0f, tpz = 1.0f;
-    float rx = 0.0f, ry = 0.0f, rz = 0.0f;
     for (int b = 0; b < bounces; ++b) {
-      uint32_t c0 = p, c1 = b0, c2 = (uint32_t)(b + 1), c3 = b1;
-      pcg4d(c0, c1, c2, c3);
-      const float v0 = to_uniform(c0), v1 = to_uniform(c1),
-                  v2 = to_uniform(c2), v3 = to_uniform(c3);
-
-      Hit h = closest_hit(s, ox, oy, oz, dx, dy, dz, tm, tmin);
-      const bool valid = h.kind >= 0.0f;
-      const int kind = (int)h.kind;
-
-      // Face the normal toward the ray.
-      const bool front = dx * h.nx + dy * h.ny + dz * h.nz < kFltEps;
-      const float sgn = front ? 1.0f : -1.0f;
-      const float nx = h.nx * sgn, ny = h.ny * sgn, nz = h.nz * sgn;
-      const float il = rsqrt_f(fmaxf(dx * dx + dy * dy + dz * dz, 1e-30f));
-      const float ux = dx * il, uy = dy * il, uz = dz * il;
-
-      bool scattered = kind != kEmission;
-      float sdx = nx, sdy = ny, sdz = nz;
-      float atr = h.ar, atg = h.ag, atb = h.ab;
-      if (valid) {
-        const float phi = kTwoPi * v1;
-        const float cos_phi = cos_f(phi), sin_phi = sin_f(phi);
-        const float u_dot_n = ux * nx + uy * ny + uz * nz;
-        const float mx = ux - 2.0f * u_dot_n * nx;
-        const float my = uy - 2.0f * u_dot_n * ny;
-        const float mz = uz - 2.0f * u_dot_n * nz;
-        const float az_z = 1.0f - 2.0f * v0;
-        const float az_r = sqrt_f(fmaxf(0.0f, 1.0f - az_z * az_z));
-        const float avx = az_r * cos_phi, avy = az_r * sin_phi, avz = az_z;
-
-        switch (kind) {
-          case kMetal: {
-            float fuzz = fminf(h.par, 1.0f);
-            float ballr = exp_f(log_f(fmaxf(v2, 1e-12f)) / 3.0f);
-            float bx = avx * ballr, by = avy * ballr, bz = avz * ballr;
-            float mrx = mx + fuzz * bx, mry = my + fuzz * by, mrz = mz + fuzz * bz;
-            bool ok = (mrx * nx + mry * ny + mrz * nz) > 0.0f;
-            sdx = ok ? mrx : mx; sdy = ok ? mry : my; sdz = ok ? mrz : mz;
-            normalize3(sdx, sdy, sdz);
-            float okf = ok ? 1.0f : 0.0f;
-            atr = h.ar * okf; atg = h.ag * okf; atb = h.ab * okf;
-            scattered = ok;
-            break;
-          }
-          case kDielectric: {
-            float ior = h.par > 0.0f ? h.par : 1.5f;
-            float eta = front ? 1.0f / ior : ior;
-            float cos_t = fminf(-(ux * nx + uy * ny + uz * nz), 1.0f);
-            float sin_t = sqrt_f(fmaxf(0.0f, 1.0f - cos_t * cos_t));
-            bool cannot = eta * sin_t > 1.0f;
-            float r0s = (1.0f - eta) / (1.0f + eta);
-            r0s = r0s * r0s;
-            float omc = 1.0f - cos_t;
-            float omc2 = omc * omc;
-            float rp = r0s + (1.0f - r0s) * omc2 * omc2 * omc;
-            bool choose = cannot || rp > v2;
-            float px = eta * (ux + cos_t * nx);
-            float py = eta * (uy + cos_t * ny);
-            float pz = eta * (uz + cos_t * nz);
-            float k = 1.0f - (px * px + py * py + pz * pz);
-            float rpar = k > 0.0f ? sqrt_f(k) : 0.0f;
-            sdx = choose ? mx : px - rpar * nx;
-            sdy = choose ? my : py - rpar * ny;
-            sdz = choose ? mz : pz - rpar * nz;
-            normalize3(sdx, sdy, sdz);
-            atr = atg = atb = 1.0f;
-            break;
-          }
-          case kPhongMetal: {
-            float pc = exp_f(log_f(fmaxf(v0, 1e-12f)) / (fmaxf(h.par, 0.0f) + 1.0f));
-            float ax = mx, ay = my, az = mz;
-            normalize3(ax, ay, az);
-            frame_lobe(ax, ay, az, pc, cos_phi, sin_phi, sdx, sdy, sdz);
-            break;
-          }
-          case kSpecular: {
-            sdx = mx; sdy = my; sdz = mz;
-            normalize3(sdx, sdy, sdz);
-            break;
-          }
-          case kCoat: {
-            bool spec = v2 < 0.05f;
-            float ccos = sqrt_f(fmaxf(0.0f, 1.0f - v0));
-            frame_lobe(nx, ny, nz, ccos, cos_phi, sin_phi, sdx, sdy, sdz);
-            if (spec) { sdx = mx; sdy = my; sdz = mz; }
-            float specf = spec ? 1.0f : 0.0f;
-            atr = specf + (1.0f - specf) * h.ar;
-            atg = specf + (1.0f - specf) * h.ag;
-            atb = specf + (1.0f - specf) * h.ab;
-            break;
-          }
-          case kRefraction: {
-            float nt = h.par > 0.0f ? h.par : 1.5f;
-            float nnt = front ? 1.0f / nt : nt;
-            float ddn = ux * nx + uy * ny + uz * nz;
-            float cos2t = 1.0f - nnt * nnt * (1.0f - ddn * ddn);
-            bool tir = cos2t < 0.0f;
-            float cos_t = fminf(-ddn, 1.0f);
-            float px = nnt * (ux + cos_t * nx);
-            float py = nnt * (uy + cos_t * ny);
-            float pz = nnt * (uz + cos_t * nz);
-            float k = 1.0f - (px * px + py * py + pz * pz);
-            float rpar = k > 0.0f ? sqrt_f(k) : 0.0f;
-            float tdx = px - rpar * nx, tdy = py - rpar * ny, tdz = pz - rpar * nz;
-            normalize3(tdx, tdy, tdz);
-            float q = (nt - 1.0f) / (nt + 1.0f);
-            float r0s = q * q;
-            float c1m = 1.0f - (front ? -ddn : tdx * nx + tdy * ny + tdz * nz);
-            float c1m2 = c1m * c1m;
-            float re = r0s + (1.0f - r0s) * c1m2 * c1m2 * c1m;
-            float prob = 0.25f + 0.5f * re;
-            bool choose = tir || v2 < prob;
-            if (choose) {
-              sdx = mx; sdy = my; sdz = mz;
-              normalize3(sdx, sdy, sdz);
-            } else {
-              sdx = tdx; sdy = tdy; sdz = tdz;
-            }
-            float w = tir ? 1.0f : (choose ? re / prob : (1.0f - re) / (1.0f - prob));
-            atr = h.ar * w; atg = h.ag * w; atb = h.ab * w;
-            break;
-          }
-          case kEmission:
-            break;  // terminates below
-          default: {  // Lambertian (and any kind without its own lobe)
-            if (lambertian_used) {
-              float lrx = nx + avx, lry = ny + avy, lrz = nz + avz;
-              if (fabsf(lrx) < 1e-8f && fabsf(lry) < 1e-8f && fabsf(lrz) < 1e-8f) {
-                lrx = nx; lry = ny; lrz = nz;
-              }
-              normalize3(lrx, lry, lrz);
-              sdx = lrx; sdy = lry; sdz = lrz;
-            }
-            break;
-          }
-        }
-      }
-
-      // ---- radiance bookkeeping ----
-      if (!valid) {
-        if (sky) {
-          float t_sky = 0.5f * (uy + 1.0f);
-          rx = rx + tpx * (1.0f + t_sky * (float)(0.5 - 1.0));
-          ry = ry + tpy * (1.0f + t_sky * (float)(0.7 - 1.0));
-          rz = rz + tpz * (1.0f + t_sky * (float)(1.0 - 1.0));
-        }
+      float v0, v1, v2, v3;
+      bounce_uniforms(p, b0, b1, b, v0, v1, v2, v3);
+      if (!bounce(s, path, tm, v0, v1, v2, v3, fl.rr && b >= rr_start, fl, tmin))
         break;
-      }
-      if (add_emission) {
-        rx = rx + tpx * h.er;
-        ry = ry + tpy * h.eg;
-        rz = rz + tpz * h.eb;
-      }
-      if (kind == kEmission) {
-        rx = rx + tpx * h.ar * h.par;
-        ry = ry + tpy * h.ag * h.par;
-        rz = rz + tpz * h.ab * h.par;
-      }
-      if (!scattered) break;
-      tpx = tpx * atr; tpy = tpy * atg; tpz = tpz * atb;
-      if (rr && b >= rr_start) {
-        float pr = fminf(fmaxf(fmaxf(fmaxf(tpx, tpy), tpz), 0.05f), 1.0f);
-        if (!(v3 < pr)) break;
-        float inv_p = 1.0f / pr;
-        tpx = tpx * inv_p; tpy = tpy * inv_p; tpz = tpz * inv_p;
-      }
-      ox = ox + h.t * dx; oy = oy + h.t * dy; oz = oz + h.t * dz;
-      dx = sdx; dy = sdy; dz = sdz;
     }
-    arx = arx + rx; ary = ary + ry; arz = arz + rz;
+    arx = arx + path.rx; ary = ary + path.ry; arz = arz + path.rz;
   }
   out[3 * i + 0] = arx;
   out[3 * i + 1] = ary;
   out[3 * i + 2] = arz;
+}
+
+// K2: the whole bounce loop of one supplied ray per thread, with the
+// per-thread exit; one sample's key words (b0, b1) for the wavefront.
+__global__ void __launch_bounds__(kThreads)
+path_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
+            int nb, int n_floats, int use_smem, const float* __restrict__ origin,
+            const float* __restrict__ direction, const float* __restrict__ time,
+            const int32_t* __restrict__ pid_g, uint32_t b0, uint32_t b1, int n,
+            int bounces, int rr_start, float tmin, int flags,
+            float* __restrict__ out) {
+  extern __shared__ float smem[];
+  const Scene s = load_scene(scene_g, smem, ns, np, nt, nq, nb, n_floats, use_smem);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Flags fl = decode_flags(flags);
+  const uint32_t p = (uint32_t)pid_g[i];
+  Path path;
+  path.ox = origin[3 * i]; path.oy = origin[3 * i + 1]; path.oz = origin[3 * i + 2];
+  path.dx = direction[3 * i]; path.dy = direction[3 * i + 1];
+  path.dz = direction[3 * i + 2];
+  const float tm = time[i];
+  path.tpx = path.tpy = path.tpz = 1.0f;
+  path.rx = path.ry = path.rz = 0.0f;
+  for (int b = 0; b < bounces; ++b) {
+    float v0, v1, v2, v3;
+    bounce_uniforms(p, b0, b1, b, v0, v1, v2, v3);
+    if (!bounce(s, path, tm, v0, v1, v2, v3, fl.rr && b >= rr_start, fl, tmin))
+      break;
+  }
+  out[3 * i + 0] = path.rx;
+  out[3 * i + 1] = path.ry;
+  out[3 * i + 2] = path.rz;
+}
+
+// K0: one bounce over the planar carry. `state` is (13, n) rows ox oy oz
+// dx dy dz tm tpx tpy tpz rx ry rz, `u4` (n, 4); `out` is (12, n), the
+// carry without tm, and `alive_out` the continue flag. Dead rays pass
+// through with alive 0.
+__global__ void __launch_bounds__(kThreads)
+bounce_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
+              int nb, int n_floats, int use_smem, const float* __restrict__ state,
+              const int32_t* __restrict__ alive, const float* __restrict__ u4,
+              int n, int do_rr, float tmin, int flags, float* __restrict__ out,
+              int32_t* __restrict__ alive_out) {
+  extern __shared__ float smem[];
+  const Scene s = load_scene(scene_g, smem, ns, np, nt, nq, nb, n_floats, use_smem);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Flags fl = decode_flags(flags);
+  Path path;
+  path.ox = state[i]; path.oy = state[n + i]; path.oz = state[2 * n + i];
+  path.dx = state[3 * n + i]; path.dy = state[4 * n + i]; path.dz = state[5 * n + i];
+  const float tm = state[6 * n + i];
+  path.tpx = state[7 * n + i]; path.tpy = state[8 * n + i]; path.tpz = state[9 * n + i];
+  path.rx = state[10 * n + i]; path.ry = state[11 * n + i]; path.rz = state[12 * n + i];
+  bool cont = false;
+  if (alive[i] != 0)
+    cont = bounce(s, path, tm, u4[4 * i], u4[4 * i + 1], u4[4 * i + 2],
+                  u4[4 * i + 3], fl.rr && do_rr != 0, fl, tmin);
+  out[i] = path.ox; out[n + i] = path.oy; out[2 * n + i] = path.oz;
+  out[3 * n + i] = path.dx; out[4 * n + i] = path.dy; out[5 * n + i] = path.dz;
+  out[6 * n + i] = path.tpx; out[7 * n + i] = path.tpy; out[8 * n + i] = path.tpz;
+  out[9 * n + i] = path.rx; out[10 * n + i] = path.ry; out[11 * n + i] = path.rz;
+  alive_out[i] = cont ? 1 : 0;
+}
+
+// Shared-memory use of a launch: the scene rows when they fit in 48 KB.
+int scene_floats(int n_sph, int n_pla, int n_trih, int n_quad, int n_box) {
+  return kSphRows * n_sph + kPlaRows * n_pla + kHavRows * n_trih +
+         kHavRows * n_quad + kBoxRows * n_box;
+}
+
+size_t smem_bytes(int n_floats) {
+  const size_t bytes = (size_t)n_floats * sizeof(float);
+  return bytes <= (size_t)kSmemLimit ? bytes : 0;
 }
 
 }  // namespace
@@ -494,16 +625,45 @@ extern "C" int rtnw_render_samples(const float* scene, int n_sph, int n_pla,
                                    int width, int height, int bounces,
                                    int rr_start, float tmin, int flags,
                                    float* out, void* stream) {
-  const int n_floats = kSphRows * n_sph + kPlaRows * n_pla + kHavRows * n_trih +
-                       kHavRows * n_quad + kBoxRows * n_box;
-  const size_t bytes = (size_t)n_floats * sizeof(float);
-  const int use_smem = bytes <= (size_t)kSmemLimit ? 1 : 0;
+  const int n_floats = scene_floats(n_sph, n_pla, n_trih, n_quad, n_box);
+  const size_t bytes = smem_bytes(n_floats);
   const int blocks = (n + kThreads - 1) / kThreads;
-  render_kernel<<<blocks, kThreads, use_smem ? bytes : 0,
-                  (cudaStream_t)stream>>>(
-      scene, n_sph, n_pla, n_trih, n_quad, n_box, n_floats, use_smem, frame,
-      words, n_samples, pid, n, width, height, bounces, rr_start, tmin, flags,
+  render_kernel<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
+      scene, n_sph, n_pla, n_trih, n_quad, n_box, n_floats, bytes > 0 ? 1 : 0,
+      frame, words, n_samples, pid, n, width, height, bounces, rr_start, tmin,
+      flags, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rtnw_path_trace(const float* scene, int n_sph, int n_pla,
+                               int n_trih, int n_quad, int n_box,
+                               const float* origin, const float* direction,
+                               const float* time, const int32_t* pid,
+                               uint32_t b0, uint32_t b1, int n, int bounces,
+                               int rr_start, float tmin, int flags, float* out,
+                               void* stream) {
+  const int n_floats = scene_floats(n_sph, n_pla, n_trih, n_quad, n_box);
+  const size_t bytes = smem_bytes(n_floats);
+  const int blocks = (n + kThreads - 1) / kThreads;
+  path_kernel<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
+      scene, n_sph, n_pla, n_trih, n_quad, n_box, n_floats, bytes > 0 ? 1 : 0,
+      origin, direction, time, pid, b0, b1, n, bounces, rr_start, tmin, flags,
       out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rtnw_bounce_step(const float* scene, int n_sph, int n_pla,
+                                int n_trih, int n_quad, int n_box,
+                                const float* state, const int32_t* alive,
+                                const float* u4, int n, int do_rr, float tmin,
+                                int flags, float* out, int32_t* alive_out,
+                                void* stream) {
+  const int n_floats = scene_floats(n_sph, n_pla, n_trih, n_quad, n_box);
+  const size_t bytes = smem_bytes(n_floats);
+  const int blocks = (n + kThreads - 1) / kThreads;
+  bounce_kernel<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
+      scene, n_sph, n_pla, n_trih, n_quad, n_box, n_floats, bytes > 0 ? 1 : 0,
+      state, alive, u4, n, do_rr, tmin, flags, out, alive_out);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,9 @@ raytracingthenextweekcuda_tpu/models/camera.py).
 `Camera` holds the user parameters, `derive` the viewport frame, and
 `pack_frame` the 21 floats the render kernel reads. `raygen` is the
 kernel's ray generation in plain torch: one jittered thin-lens ray per
-pixel id from the pcg4d stream of one sample's key words.
+pixel id from the pcg4d stream of one sample's key words; `generate_rays`
+(one sample) and `generate_rays_multi` (a group of samples) build
+wavefronts with it.
 """
 
 from __future__ import annotations
@@ -113,6 +115,20 @@ def ray_context(sample_words, pixel_ids: torch.Tensor) -> RayCtx:
     (one row of ops/threefry.split) and the rays' pixel ids."""
     b0, b1 = (int(w) for w in np.asarray(sample_words, np.uint32).reshape(2))
     return RayCtx(pixel_ids.to(torch.int64), b0, b1)
+
+
+def generate_rays(frame: CameraFrame, sample_words, width: int, height: int,
+                  pixel_ids: torch.Tensor | None = None,
+                  device="cpu") -> tuple[Rays, RayCtx]:
+    """One jittered primary ray per pixel of `pixel_ids` (default: every
+    pixel, row-major, y = 0 at the image bottom) for one sample, whose two
+    key words are `sample_words` (a row of ops/threefry.split). Returns the
+    rays and their RayCtx, whose key words are Python ints; the rays are
+    those of `generate_rays_multi` for a group of one."""
+    if pixel_ids is None:
+        pixel_ids = torch.arange(width * height, dtype=torch.int64, device=device)
+    ctx = ray_context(sample_words, pixel_ids)
+    return generate_rays_ctx(frame, ctx, width, height), ctx
 
 
 def generate_rays_multi(frame: CameraFrame, sample_words, width: int,

@@ -5,7 +5,8 @@ raytracingthenextweekcuda_tpu/models/scene.py).
 `build()` packs them once into numpy struct-of-arrays. `finalize` adds the
 packed rows the render kernel reads. `from_jax_arrays` takes the leaves of
 a reference Scene, as numpy arrays, so a scene built by the JAX package can
-be rendered by the port.
+be rendered by the port; `with_leaves` swaps leaves for other arrays or for
+torch tensors that require grad (the differentiable engine).
 """
 
 from __future__ import annotations
@@ -41,6 +42,9 @@ class Scene:
     mesh_info: MeshInfo
     # PackedScene of the render kernel (ops/cuda/bounce_kernel.py).
     packed: Optional[object] = None
+    # The reference's LBVH (its ops/bvh.py), which the port does not
+    # traverse yet: a scene that carries one is refused by the integrator.
+    bvh: Optional[object] = None
 
 
 # Triangles per tile-BVH leaf: the reference's default leaf width
@@ -122,6 +126,22 @@ def from_jax_arrays(arrays: dict[str, np.ndarray]) -> Scene:
             _f32(arrays.get("mesh_info.bounds_min", np.zeros((0, 3)))),
             _f32(arrays.get("mesh_info.bounds_max", np.zeros((0, 3))))),
     )
+
+
+def with_leaves(scene: Scene, leaves: dict) -> Scene:
+    """`scene` with some leaves replaced, keyed "<part>.<field>" as in
+    `from_jax_arrays`. The values may be numpy arrays or torch tensors,
+    such as parameters that require grad. A finalized scene keeps its
+    pack: the kernels select the closest hits from the pack (no gradient),
+    and the torch recompute of the hit record reads the new leaves
+    (ops/fused.py), as the reference splits selection and recompute."""
+    parts = {}
+    for key, value in leaves.items():
+        part, field = key.split(".")
+        parts.setdefault(part, {})[field] = value
+    return dataclasses.replace(scene, **{
+        part: dataclasses.replace(getattr(scene, part), **fields)
+        for part, fields in parts.items()})
 
 
 class SceneBuilder:

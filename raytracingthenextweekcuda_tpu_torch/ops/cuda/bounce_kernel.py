@@ -1,14 +1,21 @@
-"""The whole-render kernel K1, its plain torch version, and the host packers
-(counterpart of raytracingthenextweekcuda_tpu/ops/pallas/bounce_kernel.py:
-75-506 and 1703-1805).
+"""The bounce kernels K1, K2 and K0, their plain torch versions, and the
+host packers (counterpart of raytracingthenextweekcuda_tpu/ops/pallas/
+bounce_kernel.py: 75-506 and 1303-1951).
 
-K1 (csrc/render_kernel.cu) renders a whole pass in one launch: for each
-pixel and each sample it generates the thin-lens primary ray from pcg4d and
-traces it through up to `bounces` bounces over the packed spheres, planes,
-Havel triangles and quads, and oriented boxes, summing the radiance.
-`render_samples` is its wrapper: tensors on a CUDA device launch the kernel
-(or raise), tensors on the CPU run `render_samples_reference`, the same
-function in vectorized torch. There is no fallback from one to the other.
+The three kernels (csrc/render_kernel.cu) share one bounce body:
+- K1, `render_samples`, renders a whole pass in one launch: for each pixel
+  and each sample it generates the thin-lens primary ray from pcg4d and
+  traces it through up to `bounces` bounces over the packed spheres,
+  planes, Havel triangles and quads, and oriented boxes, summing the
+  radiance.
+- K2, `path_trace`, traces a supplied wavefront of one sample to the end.
+- K0, `bounce_step`, advances the planar carry of `planar_state` by one
+  bounce on pre-drawn uniforms.
+Each entry dispatches by device: tensors on a CUDA device launch the kernel
+(or raise), tensors on the CPU run the plain version, the same function in
+vectorized torch. There is no fallback from one to the other. None of the
+kernels has a backward: `guard` joins each output to the inputs so that a
+backward through it raises (`ForwardOnly`) instead of giving zeros.
 
 Both versions round alike: float32 everywhere, with sqrt, 1/sqrt, sin, cos,
 exp and log taken in float64 and rounded to float32 (the kernel calls the
@@ -52,6 +59,7 @@ from raytracingthenextweekcuda_tpu_torch.ops.geometry import (
     REFRACTION,
     SPECULAR,
 )
+from raytracingthenextweekcuda_tpu_torch.ops.rays import Rays
 from raytracingthenextweekcuda_tpu_torch.ops.rng import pcg4d, to_uniform
 
 SKY_WHITE = (1.0, 1.0, 1.0)
@@ -71,8 +79,11 @@ TYPE_ROWS = {"sph": SPH_ROWS + MAT_ROWS, "pla": PLA_ROWS + MAT_ROWS,
              "trih": HAVEL_ROWS + MAT_ROWS, "quad": HAVEL_ROWS + MAT_ROWS,
              "box": BOX_ROWS + MAT_ROWS}
 
-# Launches of K1, counted by `render_samples` where it launches the kernel.
+# Launches of K1, K2 and K0, each counted by its wrapper where it launches
+# the kernel.
 KERNEL_LAUNCHES = 0
+PATH_LAUNCHES = 0
+BOUNCE_LAUNCHES = 0
 
 # Primitive columns the plain version tests per vectorized step.
 _PRIM_CHUNK = 256
@@ -381,22 +392,17 @@ def pack_scene_shaded(scene, tile_bvh=None) -> PackedScene:
 # --------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
-class RenderInputs:
-    """Everything one render pass reads, as tensors on one device.
+class SceneInputs:
+    """The packed scene and the bounce settings, as K1, K2 and K0 read them.
 
     `scene` is one flat float32 buffer of the packed rows at their TRUE
     counts, type after type (spheres 18 rows, planes 21, Havel triangles
     20, Havel quads 20, boxes 23), each (rows, count) row-major; `rows`
-    holds (rows, count) views of it per type for the plain version.
+    holds (rows, count) views of it per type for the plain versions.
     """
 
     scene: torch.Tensor        # (F,) float32
     counts: tuple              # (n_sph, n_pla, n_trih, n_quad, n_box)
-    frame: torch.Tensor        # (21,) float32
-    words: torch.Tensor        # (S, 2) int32: uint32 key words per sample
-    pid: torch.Tensor          # (N,) int32 pixel ids
-    width: int
-    height: int
     bounces: int
     rr_start: int
     tmin: float
@@ -423,12 +429,47 @@ class RenderInputs:
         return (int(self.sky) | int(self.russian_roulette) << 1
                 | int(self.additive_emission) << 2 | mask << 8)
 
+    def scene_fields(self) -> dict:
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(SceneInputs)}
 
-def render_inputs(packed: PackedScene, frame, sample_words, cfg,
-                  pixel_ids=None, device="cpu") -> RenderInputs:
-    """Build the kernel's inputs on `device` from host data."""
+
+@dataclasses.dataclass(frozen=True)
+class RenderInputs(SceneInputs):
+    """Everything one render pass of K1 reads, as tensors on one device."""
+
+    frame: torch.Tensor        # (21,) float32
+    words: torch.Tensor        # (S, 2) int32: uint32 key words per sample
+    pid: torch.Tensor          # (N,) int32 pixel ids
+    width: int
+    height: int
+
+
+@dataclasses.dataclass(frozen=True)
+class PathInputs(SceneInputs):
+    """What K2 reads: a wavefront of N rays of one sample."""
+
+    origin: torch.Tensor       # (N, 3) float32
+    direction: torch.Tensor    # (N, 3) float32
+    time: torch.Tensor         # (N,) float32
+    pid: torch.Tensor          # (N,) int32 pixel ids
+    words: tuple               # (b0, b1): the sample's uint32 key words
+
+
+@dataclasses.dataclass(frozen=True)
+class BounceInputs(SceneInputs):
+    """What K0 reads: the planar carry of N rays and one bounce's draws."""
+
+    state: torch.Tensor        # (13, N) float32: ox oy oz dx dy dz tm tp rgb rad rgb
+    alive: torch.Tensor        # (N,) int32
+    u4: torch.Tensor           # (N, 4) float32
+    do_rr: bool
+
+
+def scene_inputs(packed: PackedScene, cfg, device="cpu") -> SceneInputs:
+    """The packed scene's rows and `cfg`'s bounce settings on `device`."""
     if not packed.shaded:
-        raise ValueError("render_samples needs a shaded pack (models.scene.finalize)")
+        raise ValueError("the bounce kernels need a shaded pack (models.scene.finalize)")
     S, P, T = packed.counts
     nt, nq, nb = packed.hcounts
     if T and not (nt or nq or nb):
@@ -440,19 +481,10 @@ def render_inputs(packed: PackedScene, frame, sample_words, cfg,
         nt = nq = nb = 0
     flat = np.concatenate([np.ascontiguousarray(b, np.float32).reshape(-1)
                            for b in blocks])
-    words = np.asarray(sample_words, np.uint32).reshape(-1, 2)
-    if pixel_ids is None:
-        pid = torch.arange(cfg.num_pixels, dtype=torch.int32)
-    else:
-        pid = torch.as_tensor(pixel_ids).to(torch.int32)
     used = packed.used_kinds if packed.used_kinds is not None else tuple(range(8))
-    return RenderInputs(
+    return SceneInputs(
         scene=torch.from_numpy(flat).to(device),
         counts=(S, P, nt, nq, nb),
-        frame=pack_frame(frame, device),
-        words=torch.from_numpy(words.view(np.int32).copy()).to(device),
-        pid=pid.to(device),
-        width=int(cfg.width), height=int(cfg.height),
         bounces=int(cfg.bounces), rr_start=int(cfg.rr_start_bounce),
         tmin=float(cfg.tmin), sky=bool(cfg.sky_background),
         russian_roulette=bool(cfg.russian_roulette),
@@ -460,6 +492,118 @@ def render_inputs(packed: PackedScene, frame, sample_words, cfg,
         used_kinds=tuple(int(k) for k in used),
     )
 
+
+def render_inputs(packed: PackedScene, frame, sample_words, cfg,
+                  pixel_ids=None, device="cpu") -> RenderInputs:
+    """Build K1's inputs on `device` from host data."""
+    sc = scene_inputs(packed, cfg, device)
+    words = np.asarray(sample_words, np.uint32).reshape(-1, 2)
+    if pixel_ids is None:
+        pid = torch.arange(cfg.num_pixels, dtype=torch.int32)
+    else:
+        pid = torch.as_tensor(pixel_ids).to(torch.int32)
+    return RenderInputs(
+        **sc.scene_fields(),
+        frame=pack_frame(frame, device),
+        words=torch.from_numpy(words.view(np.int32).copy()).to(device),
+        pid=pid.to(device),
+        width=int(cfg.width), height=int(cfg.height),
+    )
+
+
+def _no_tile_bvh(packed: PackedScene, entry: str) -> None:
+    if packed.leaf_bounds is not None:
+        raise ValueError(
+            f"{entry}: tile-BVH packs need the consensus-BVH branch of the "
+            "bounce kernels, which is not ported (ROADMAP queue 2); render "
+            "such scenes through models.integrator (the sorted wavefront)")
+
+
+def path_inputs(packed: PackedScene, rays: Rays, ctx, cfg) -> PathInputs:
+    """K2's inputs on the rays' device. `ctx` is the wavefront's RayCtx
+    (models.camera.generate_rays), whose key words must be scalars: one
+    sample per wavefront."""
+    _no_tile_bvh(packed, "path_trace")
+    if any(torch.is_tensor(w) and w.dim() for w in (ctx.base0, ctx.base1)):
+        raise ValueError(
+            "path_trace needs scalar RayCtx key words (one sample per "
+            "wavefront); multi-sample (N,) contexts go through the sorted "
+            "wavefront (models.integrator._trace_sorted)")
+    dev = rays.origin.device
+    sc = scene_inputs(packed, cfg, dev)
+    return PathInputs(
+        **sc.scene_fields(),
+        origin=rays.origin.detach().float().contiguous(),
+        direction=rays.direction.detach().float().contiguous(),
+        time=rays.time.detach().float().contiguous(),
+        pid=torch.as_tensor(ctx.pixel_id, device=dev).to(torch.int32).contiguous(),
+        words=(int(ctx.base0) & 0xFFFFFFFF, int(ctx.base1) & 0xFFFFFFFF),
+    )
+
+
+def bounce_inputs(packed: PackedScene, state, u4, do_rr, cfg) -> BounceInputs:
+    """K0's inputs on the state's device; `state` is the 14-tuple of
+    `planar_state`."""
+    _no_tile_bvh(packed, "bounce_step")
+    dev = state[0].device
+    sc = scene_inputs(packed, cfg, dev)
+    floats = [state[k] for k in range(14) if k != 7]
+    return BounceInputs(
+        **sc.scene_fields(),
+        state=torch.stack([x.detach().float() for x in floats]).contiguous(),
+        alive=state[7].detach().to(torch.int32).contiguous(),
+        u4=u4.detach().float().contiguous(),
+        do_rr=bool(do_rr),
+    )
+
+
+# --------------------------------------------------------------------------
+# The guard of the forward-only kernels
+# --------------------------------------------------------------------------
+
+FORWARD_ONLY_MESSAGE = (
+    "cfg.fused_bounce=True renders with the forward-only bounce kernels "
+    "(K1, K2, K0); set fused_bounce=False for differentiable rendering "
+    "(the torch wavefront)."
+)
+
+
+class ForwardOnly(torch.autograd.Function):
+    """Identity that fails loudly under backward.
+
+    The kernels have no backward, and their outputs would carry no graph:
+    differentiating a fused render would silently give zero gradients.
+    `guard` joins a kernel's output to its inputs through this function,
+    so a backward through it raises instead."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(FORWARD_ONLY_MESSAGE)
+
+
+def grad_probe(*tensors):
+    """Exactly 0 in the forward, carrying every tensor of `tensors` that
+    requires grad through `ForwardOnly` (0.0 when none does)."""
+    live = [t for t in tensors if torch.is_tensor(t) and t.requires_grad]
+    if not live:
+        return 0.0
+    probe = ForwardOnly.apply(sum(t.sum() for t in live))
+    return probe - probe.detach()
+
+
+def guard(out: torch.Tensor, *inputs) -> torch.Tensor:
+    """A kernel's output joined to its inputs by `grad_probe`."""
+    probe = grad_probe(*inputs)
+    return out if isinstance(probe, float) else out + probe
+
+
+# --------------------------------------------------------------------------
+# Entries and dispatch
+# --------------------------------------------------------------------------
 
 def render_samples(packed: PackedScene, frame, sample_words, cfg,
                    pixel_ids=None, device="cpu") -> torch.Tensor:
@@ -471,7 +615,8 @@ def render_samples(packed: PackedScene, frame, sample_words, cfg,
     version on the CPU.
     """
     inp = render_inputs(packed, frame, sample_words, cfg, pixel_ids, device)
-    return render_kernel(inp)
+    return guard(render_kernel(inp), *(getattr(frame, f.name)
+                                        for f in dataclasses.fields(frame)))
 
 
 def render_samples_reference(packed: PackedScene, frame, sample_words, cfg,
@@ -481,14 +626,102 @@ def render_samples_reference(packed: PackedScene, frame, sample_words, cfg,
     return render_reference(inp)
 
 
+def path_trace(packed: PackedScene, rays: Rays, ctx, cfg) -> torch.Tensor:
+    """Trace one sample's wavefront to the end: radiance (N, 3) float32.
+
+    Each bounce draws its uniforms from pcg4d(pixel, b0, bounce + 1, b1),
+    the stream of the torch wavefront (models.integrator.trace). K2 on a
+    CUDA device, the plain version on the CPU.
+    """
+    inp = path_inputs(packed, rays, ctx, cfg)
+    return guard(path_kernel(inp), rays.origin, rays.direction, rays.time)
+
+
+def path_trace_reference(packed: PackedScene, rays: Rays, ctx, cfg) -> torch.Tensor:
+    """The plain torch version of `path_trace`, on any device."""
+    return path_reference(path_inputs(packed, rays, ctx, cfg))
+
+
+def planar_state(rays: Rays) -> tuple:
+    """A wavefront as the planar carry of `bounce_step`: (ox, oy, oz, dx,
+    dy, dz, tm, alive, tpx, tpy, tpz, rx, ry, rz), each (N,); alive int32
+    ones, throughput ones, radiance zeros."""
+    n = rays.count
+    dev = rays.origin.device
+    ones = torch.ones((n,), dtype=torch.float32, device=dev)
+    zeros = torch.zeros((n,), dtype=torch.float32, device=dev)
+    return (rays.origin[:, 0], rays.origin[:, 1], rays.origin[:, 2],
+            rays.direction[:, 0], rays.direction[:, 1], rays.direction[:, 2],
+            rays.time, torch.ones((n,), dtype=torch.int32, device=dev),
+            ones, ones, ones, zeros, zeros, zeros)
+
+
+def _carry(inp: BounceInputs, out: torch.Tensor, alive: torch.Tensor) -> tuple:
+    """K0's (12, N) output and alive row back to the 14-tuple; the time
+    row is the input's."""
+    rows = out.unbind(0)
+    return (*rows[0:6], inp.state[6], alive, *rows[6:12])
+
+
+def bounce_step(packed: PackedScene, state, u4, do_rr, cfg) -> tuple:
+    """One bounce over the planar carry of `planar_state`. `u4` is the
+    (N, 4) uniform block of the bounce and `do_rr` whether Russian roulette
+    runs on it. Dead rays pass through unchanged with alive 0. K0 on a
+    CUDA device, the plain version on the CPU."""
+    inp = bounce_inputs(packed, state, u4, do_rr, cfg)
+    out, alive = bounce_kernel(inp)
+    return _carry(inp, guard(out, *state, u4), alive)
+
+
+def bounce_step_reference(packed: PackedScene, state, u4, do_rr, cfg) -> tuple:
+    """The plain torch version of `bounce_step`, on any device."""
+    inp = bounce_inputs(packed, state, u4, do_rr, cfg)
+    return _carry(inp, *bounce_reference(inp))
+
+
+def _dispatch(dev: torch.device, launch, plain, inp):
+    """CUDA tensors launch the kernel, CPU tensors run the plain version."""
+    if dev.type == "cuda":
+        return launch(inp)
+    if dev.type == "cpu":
+        return plain(inp)
+    raise ValueError(f"unsupported device {dev}")
+
+
 def render_kernel(inp: RenderInputs) -> torch.Tensor:
-    """Dispatch by device: CUDA tensors launch K1, CPU tensors run the
-    plain version."""
-    if inp.pid.device.type == "cuda":
-        return _launch(inp)
-    if inp.pid.device.type == "cpu":
-        return render_reference(inp)
-    raise ValueError(f"unsupported device {inp.pid.device}")
+    """K1 or its plain version, by the inputs' device."""
+    return _dispatch(inp.pid.device, _launch, render_reference, inp)
+
+
+def path_kernel(inp: PathInputs) -> torch.Tensor:
+    """K2 or its plain version, by the inputs' device."""
+    return _dispatch(inp.pid.device, _launch_path, path_reference, inp)
+
+
+def bounce_kernel(inp: BounceInputs) -> tuple:
+    """K0 or its plain version, by the inputs' device: ((12, N) float32
+    carry without the time row, (N,) int32 alive)."""
+    return _dispatch(inp.alive.device, _launch_bounce, bounce_reference, inp)
+
+
+def _check(kernel: str, dev, specs) -> None:
+    for t, dtype, shape in specs:
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{kernel} input {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}: expected contiguous {shape} {dtype} "
+                             f"on {dev}")
+
+
+def _scene_spec(inp: SceneInputs):
+    n_floats = sum(r * c for r, c in zip(TYPE_ROWS.values(), inp.counts))
+    return (inp.scene, torch.float32, (n_floats,))
+
+
+def _raise_on(kernel: str, lib, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{kernel} launch failed: {lib.rtnw_error_string(err).decode()} ({err})")
 
 
 def _launch(inp: RenderInputs) -> torch.Tensor:
@@ -496,15 +729,10 @@ def _launch(inp: RenderInputs) -> torch.Tensor:
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
 
     dev = inp.pid.device
-    n_floats = sum(r * c for r, c in zip(TYPE_ROWS.values(), inp.counts))
-    for t, dtype, shape in ((inp.scene, torch.float32, (n_floats,)),
-                            (inp.frame, torch.float32, (21,)),
-                            (inp.words, torch.int32, (inp.words.shape[0], 2)),
-                            (inp.pid, torch.int32, (inp.pid.shape[0],))):
-        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"K1 input {tuple(t.shape)} {t.dtype} on {t.device}: "
-                             f"expected contiguous {shape} {dtype} on {dev}")
+    _check("K1", dev, (_scene_spec(inp),
+                       (inp.frame, torch.float32, (21,)),
+                       (inp.words, torch.int32, (inp.words.shape[0], 2)),
+                       (inp.pid, torch.int32, (inp.pid.shape[0],))))
     lib = build.load()
     n = inp.pid.shape[0]
     # The kernel runs on the current stream; the caching allocator reuses
@@ -523,12 +751,66 @@ def _launch(inp: RenderInputs) -> torch.Tensor:
             float(inp.tmin), inp.flags,
             out.data_ptr(), stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"K1 launch failed: {lib.rtnw_error_string(err).decode()} ({err})"
-        )
+    _raise_on("K1", lib, err)
     KERNEL_LAUNCHES += 1
     return out
+
+
+def _launch_path(inp: PathInputs) -> torch.Tensor:
+    global PATH_LAUNCHES
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
+
+    dev = inp.pid.device
+    n = inp.pid.shape[0]
+    _check("K2", dev, (_scene_spec(inp),
+                       (inp.origin, torch.float32, (n, 3)),
+                       (inp.direction, torch.float32, (n, 3)),
+                       (inp.time, torch.float32, (n,)),
+                       (inp.pid, torch.int32, (n,))))
+    lib = build.load()
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rtnw_path_trace(
+            inp.scene.data_ptr(), *inp.counts,
+            inp.origin.data_ptr(), inp.direction.data_ptr(),
+            inp.time.data_ptr(), inp.pid.data_ptr(), *inp.words, int(n),
+            inp.bounces, inp.rr_start, float(inp.tmin), inp.flags,
+            out.data_ptr(), stream,
+        )
+    _raise_on("K2", lib, err)
+    PATH_LAUNCHES += 1
+    return out
+
+
+def _launch_bounce(inp: BounceInputs) -> tuple:
+    global BOUNCE_LAUNCHES
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
+
+    dev = inp.alive.device
+    n = inp.alive.shape[0]
+    _check("K0", dev, (_scene_spec(inp),
+                       (inp.state, torch.float32, (13, n)),
+                       (inp.alive, torch.int32, (n,)),
+                       (inp.u4, torch.float32, (n, 4))))
+    lib = build.load()
+    out = torch.empty((12, n), dtype=torch.float32, device=dev)
+    alive = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out, alive
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rtnw_bounce_step(
+            inp.scene.data_ptr(), *inp.counts,
+            inp.state.data_ptr(), inp.alive.data_ptr(), inp.u4.data_ptr(),
+            int(n), int(inp.do_rr), float(inp.tmin), inp.flags,
+            out.data_ptr(), alive.data_ptr(), stream,
+        )
+    _raise_on("K0", lib, err)
+    BOUNCE_LAUNCHES += 1
+    return out, alive
 
 
 # --------------------------------------------------------------------------
@@ -914,48 +1196,83 @@ def _bounce(ray, tp, rad, u, do_rr, inp: RenderInputs, rows):
     return new_ray, (ntpx, ntpy, ntpz), (rx, ry, rz), cont
 
 
-def render_reference(inp: RenderInputs) -> torch.Tensor:
-    """Plain K1: vectorized torch over the pass's pixels, sample by sample.
+def _trace(ray, pid, b0: int, b1: int, inp: SceneInputs, rows) -> torch.Tensor:
+    """The bounce loop of the plain versions over one sample's rays:
+    radiance (N, 3).
 
     Each bounce runs on the rays still alive (a dead ray's bounce is the
-    identity in the kernel, so dropping it changes nothing); a ray's
+    identity in the kernels, so dropping it changes nothing); a ray's
     radiance is written out when it dies or the bounces run out.
     """
-    rows = inp.rows
-    pid = inp.pid.to(torch.int64)
     n = pid.shape[0]
     dev = pid.device
-    acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    ones = torch.ones((n,), dtype=torch.float32, device=dev)
+    tp = (ones, ones, ones)
+    rad = (ones * 0.0, ones * 0.0, ones * 0.0)
+    out = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    idx = torch.arange(n, device=dev)
+    for b in range(inp.bounces):
+        if idx.numel() == 0:
+            break
+        h = pcg4d(pid[idx], b0, b + 1, b1)
+        u = tuple(to_uniform(x) for x in h)
+        ray, tp, rad, cont = _bounce(ray, tp, rad, u, b >= inp.rr_start,
+                                     inp, rows)
+        done = ~cont
+        out[idx[done]] = torch.stack(rad, dim=-1)[done]
+        idx = idx[cont]
+        ray = tuple(x[cont] for x in ray)
+        tp = tuple(x[cont] for x in tp)
+        rad = tuple(x[cont] for x in rad)
+    if idx.numel():
+        out[idx] = torch.stack(rad, dim=-1)
+    return out
+
+
+def render_reference(inp: RenderInputs) -> torch.Tensor:
+    """Plain K1: vectorized torch over the pass's pixels, sample by sample."""
+    rows = inp.rows
+    pid = inp.pid.to(torch.int64)
+    acc = torch.zeros((pid.shape[0], 3), dtype=torch.float32, device=pid.device)
     words = inp.words.cpu().numpy().view(np.uint32)
     for s in range(words.shape[0]):
         b0, b1 = int(words[s, 0]), int(words[s, 1])
         ray = raygen(pid, b0, b1, inp.frame, inp.width, inp.height)
-        ones = torch.ones((n,), dtype=torch.float32, device=dev)
-        tp = (ones, ones, ones)
-        rad = (ones * 0.0, ones * 0.0, ones * 0.0)
-        out = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-        idx = torch.arange(n, device=dev)
-        for b in range(inp.bounces):
-            if idx.numel() == 0:
-                break
-            h = pcg4d(pid[idx], b0, b + 1, b1)
-            u = tuple(to_uniform(x) for x in h)
-            ray, tp, rad, cont = _bounce(ray, tp, rad, u, b >= inp.rr_start,
-                                         inp, rows)
-            done = ~cont
-            out[idx[done]] = torch.stack(rad, dim=-1)[done]
-            idx = idx[cont]
-            ray = tuple(x[cont] for x in ray)
-            tp = tuple(x[cont] for x in tp)
-            rad = tuple(x[cont] for x in rad)
-        if idx.numel():
-            out[idx] = torch.stack(rad, dim=-1)
-        acc = acc + out
+        acc = acc + _trace(ray, pid, b0, b1, inp, rows)
     return acc
 
 
+def path_reference(inp: PathInputs) -> torch.Tensor:
+    """Plain K2: the bounce loop on the supplied rays."""
+    ray = (*inp.origin.unbind(1), *inp.direction.unbind(1), inp.time)
+    return _trace(ray, inp.pid.to(torch.int64), *inp.words, inp, inp.rows)
+
+
+def bounce_reference(inp: BounceInputs) -> tuple:
+    """Plain K0: one bounce on the live rays of the carry; the dead pass
+    through. Returns ((12, N) float32 carry without the time row, (N,)
+    int32 alive)."""
+    out = torch.cat([inp.state[0:6], inp.state[7:13]])
+    alive = torch.zeros_like(inp.alive)
+    idx = torch.nonzero(inp.alive).flatten()
+    if idx.numel() == 0:
+        return out, alive
+    live = inp.state[:, idx]
+    ray, tp, rad, cont = _bounce(tuple(live[0:7]), tuple(live[7:10]),
+                                 tuple(live[10:13]), tuple(inp.u4[idx].unbind(1)),
+                                 inp.do_rr, inp, inp.rows)
+    out[:, idx] = torch.stack([*ray[0:6], *tp, *rad])
+    alive[idx] = cont.to(torch.int32)
+    return out, alive
+
+
 __all__ = [
-    "KERNEL_LAUNCHES", "MAT_ROWS", "RenderInputs", "pack_frame",
-    "pack_scene_shaded", "render_inputs", "render_kernel", "render_reference",
-    "render_samples", "render_samples_reference",
+    "BOUNCE_LAUNCHES", "BounceInputs", "ForwardOnly", "KERNEL_LAUNCHES",
+    "MAT_ROWS", "PATH_LAUNCHES", "PathInputs", "RenderInputs", "SceneInputs",
+    "bounce_inputs", "bounce_kernel", "bounce_reference", "bounce_step",
+    "bounce_step_reference", "grad_probe", "guard", "pack_frame",
+    "pack_scene_shaded", "path_inputs", "path_kernel", "path_reference",
+    "path_trace", "path_trace_reference", "planar_state", "render_inputs",
+    "render_kernel", "render_reference", "render_samples",
+    "render_samples_reference", "scene_inputs",
 ]

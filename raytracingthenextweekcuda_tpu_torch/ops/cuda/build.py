@@ -127,6 +127,27 @@ def load() -> ctypes.CDLL:
             vp,                      # cudaStream_t
         ]
         fn.restype = ci
+        fn = lib.rtnw_path_trace  # K2
+        fn.argtypes = [
+            vp,                      # scene rows (float*)
+            ci, ci, ci, ci, ci,      # n_sph, n_pla, n_trih, n_quad, n_box
+            vp, vp, vp, vp,          # origin, direction (n, 3), time, pixel ids
+            ctypes.c_uint32, ctypes.c_uint32,  # the sample's key words
+            ci, ci, ci, cf, ci,      # n, bounces, rr_start, tmin, flags
+            vp,                      # out (n, 3) float
+            vp,                      # cudaStream_t
+        ]
+        fn.restype = ci
+        fn = lib.rtnw_bounce_step  # K0
+        fn.argtypes = [
+            vp,                      # scene rows (float*)
+            ci, ci, ci, ci, ci,      # n_sph, n_pla, n_trih, n_quad, n_box
+            vp, vp, vp,              # state (13, n), alive (int32), u4 (n, 4)
+            ci, ci, cf, ci,          # n, do_rr, tmin, flags
+            vp, vp,                  # out (12, n) float, alive out (int32)
+            vp,                      # cudaStream_t
+        ]
+        fn.restype = ci
         fn = lib.rtnw_closest_hit  # K3
         fn.argtypes = [
             vp, ci, ci, ci,          # rows (float*), n_sph, n_pla, n_tri

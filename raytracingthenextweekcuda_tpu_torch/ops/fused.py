@@ -8,14 +8,14 @@ analytic hit lies in front of the root entry, is dead to K4, and each
 ray's closest analytic hit seeds K4's search as a ceiling (`t_cap`). The
 two winners merge by closest t; the mesh wins only when strictly closer or
 when there is no analytic hit. The recompute reads the winning rows with
-index gathers.
+index gathers, from tables built of the scene's live leaves, so the hit
+record is differentiable with respect to them while the selection is not.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from raytracingthenextweekcuda_tpu_torch.config import FLT_EPSILON
@@ -34,6 +34,7 @@ from raytracingthenextweekcuda_tpu_torch.ops.cuda.intersect_kernel import (
     analytic_rows,
     intersect_packed,
 )
+from raytracingthenextweekcuda_tpu_torch.ops.intersect import leaf, take_rows
 from raytracingthenextweekcuda_tpu_torch.ops.rays import Hit, Rays, face_normal
 from raytracingthenextweekcuda_tpu_torch.ops.wavefront_sort import safe_inv
 
@@ -53,25 +54,33 @@ class DeviceScene(NamedTuple):
 
 
 def device_scene(scene, device) -> DeviceScene:
-    """The DeviceScene of a finalized scene."""
+    """The DeviceScene of a finalized scene, in two parts as the reference
+    splits them. Selection: K3's rows and K4's leaves come from the
+    detached numpy rows of `scene.packed`, so the kernels get no gradient
+    (the reference's stop_gradient). Recompute: the winner tables come from
+    the scene's live leaves, which may be tensors that require grad, so
+    gradients flow through `_recompute` into them."""
     packed = scene.packed
     tile_bvh = packed.leaf_bounds is not None
-
-    def table(n, *cols):
-        arr = np.concatenate([np.asarray(c, np.float32).reshape(n, w)
-                              for c, w in cols], axis=1)
-        return torch.from_numpy(arr).to(device)
-
-    sph, pla, tri = scene.spheres, scene.planes, scene.triangles
     return DeviceScene(
         analytic=analytic_rows(packed, device, include_triangles=not tile_bvh),
         leaves=leaf_scene(packed, device) if tile_bvh else None,
-        spheres=table(sph.count, (sph.center0, 3), (sph.center1, 3),
-                      (sph.time0, 1), (sph.time1, 1), (sph.radius, 1),
-                      (sph.material_id, 1)),
-        planes=table(pla.count, (pla.position, 3), (pla.normal, 3),
-                     (pla.material_id, 1)),
-        triangles=table(tri.count, (tri.vertices, 9), (tri.material_id, 1)),
+        **_recompute_tables(scene, device),
+    )
+
+
+def _recompute_tables(scene, device) -> dict:
+    """The winner tables of the recompute, from the scene's leaves (numpy
+    arrays or tensors, kept in the autograd graph)."""
+    def table(*cols):
+        return torch.cat([leaf(c, device).reshape(-1, w) for c, w in cols], dim=1)
+
+    sph, pla, tri = scene.spheres, scene.planes, scene.triangles
+    return dict(
+        spheres=table((sph.center0, 3), (sph.center1, 3), (sph.time0, 1),
+                      (sph.time1, 1), (sph.radius, 1), (sph.material_id, 1)),
+        planes=table((pla.position, 3), (pla.normal, 3), (pla.material_id, 1)),
+        triangles=table((tri.vertices, 9), (tri.material_id, 1)),
     )
 
 
@@ -96,12 +105,15 @@ def mesh_query(leaves: LeafScene, rays: Rays, tmin: float, alive, t_sel,
 
 def intersect_scene_fused(dev_scene: DeviceScene, rays: Rays, tmin: float,
                           alive=None) -> Hit:
-    """Closest hit of `rays` (see the module docstring)."""
-    t_sel, code = intersect_packed(rays, dev_scene.analytic, tmin, alive=alive)
+    """Closest hit of `rays` (see the module docstring). The selection
+    sees the rays detached; the recompute sees them as they are."""
+    sel = Rays(rays.origin.detach(), rays.direction.detach(),
+               rays.time.detach())
+    t_sel, code = intersect_packed(sel, dev_scene.analytic, tmin, alive=alive)
     if dev_scene.leaves is not None:
-        alive_mesh, t_cap = mesh_query(dev_scene.leaves, rays, tmin, alive,
+        alive_mesh, t_cap = mesh_query(dev_scene.leaves, sel, tmin, alive,
                                        t_sel, code)
-        t_m, c_m = intersect_packed_bvh(rays, dev_scene.leaves, tmin,
+        t_m, c_m = intersect_packed_bvh(sel, dev_scene.leaves, tmin,
                                         alive=alive_mesh, t_cap=t_cap)
         pick_mesh = (c_m >= 0) & ((t_m < t_sel) | (code < 0))
         t_sel = torch.where(pick_mesh, t_m, t_sel)
@@ -123,7 +135,7 @@ def _recompute(ds: DeviceScene, rays: Rays, t_sel, code) -> Hit:
     material_id = torch.full((n,), -1, dtype=torch.int64, device=dev)
 
     if ds.spheres.shape[0]:
-        row = ds.spheres[torch.where(ptype == TYPE_SPHERE, idx, 0)]
+        row = take_rows(ds.spheres, torch.where(ptype == TYPE_SPHERE, idx, 0))
         c0, c1 = row[:, 0:3], row[:, 3:6]
         t0, t1, radius = row[:, 6], row[:, 7], row[:, 8]
         w = (rays.time - t0) / (t1 - t0)
@@ -146,7 +158,7 @@ def _recompute(ds: DeviceScene, rays: Rays, t_sel, code) -> Hit:
                                   material_id)
 
     if ds.planes.shape[0]:
-        row = ds.planes[torch.where(ptype == TYPE_PLANE, idx, 0)]
+        row = take_rows(ds.planes, torch.where(ptype == TYPE_PLANE, idx, 0))
         position, normal = row[:, 0:3], row[:, 3:6]
         denom = linalg.dot(normal, d)
         denom = torch.where(denom.abs() > 1e-12, denom, torch.ones_like(denom))
@@ -158,7 +170,7 @@ def _recompute(ds: DeviceScene, rays: Rays, t_sel, code) -> Hit:
                                   material_id)
 
     if ds.triangles.shape[0]:
-        row = ds.triangles[torch.where(ptype == TYPE_TRIANGLE, idx, 0)]
+        row = take_rows(ds.triangles, torch.where(ptype == TYPE_TRIANGLE, idx, 0))
         v0 = row[:, 0:3]
         e1 = row[:, 3:6] - v0
         e2 = row[:, 6:9] - v0

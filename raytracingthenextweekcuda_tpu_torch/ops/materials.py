@@ -13,7 +13,6 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from raytracingthenextweekcuda_tpu_torch.ops import fmath, linalg, sampling
@@ -27,6 +26,7 @@ from raytracingthenextweekcuda_tpu_torch.ops.geometry import (
     REFRACTION,
     SPECULAR,
 )
+from raytracingthenextweekcuda_tpu_torch.ops.intersect import leaf, take_rows
 from raytracingthenextweekcuda_tpu_torch.ops.rays import Hit, Rays
 
 
@@ -40,22 +40,20 @@ class MaterialRows(NamedTuple):
 
 
 def material_table(materials, device) -> MaterialRows:
-    """A scene's Materials (numpy) as a table on `device`."""
-    def t(x, dtype):
-        return torch.from_numpy(np.asarray(x).astype(dtype)).to(device)
-
-    return MaterialRows(t(materials.kind, np.int64),
-                        t(materials.albedo, np.float32),
-                        t(materials.param, np.float32),
-                        t(materials.emission, np.float32))
+    """A scene's Materials as a table on `device`; leaves that are tensors
+    keep their autograd graph (albedos fitted by apps/fit.py)."""
+    return MaterialRows(leaf(materials.kind, device, torch.int64),
+                        leaf(materials.albedo, device),
+                        leaf(materials.param, device),
+                        leaf(materials.emission, device))
 
 
 def gather(table: MaterialRows, material_id: torch.Tensor) -> MaterialRows:
     """Per-ray rows; an id < 0 (a miss) reads row 0, whose values the
     caller masks."""
     idx = torch.clamp_min(material_id, 0)
-    return MaterialRows(table.kind[idx], table.albedo[idx], table.param[idx],
-                        table.emission[idx])
+    return MaterialRows(table.kind[idx], take_rows(table.albedo, idx),
+                        take_rows(table.param, idx), take_rows(table.emission, idx))
 
 
 class Scatter(NamedTuple):

@@ -43,6 +43,17 @@ class Hit:
     material_id: torch.Tensor  # (N,) int64
     valid: torch.Tensor        # (N,) bool
 
+    @staticmethod
+    def none(n: int, device=None) -> "Hit":
+        """The record of N rays that hit nothing."""
+        return Hit(
+            t=torch.full((n,), float("inf"), device=device),
+            normal=torch.zeros((n, 3), device=device),
+            front_face=torch.zeros((n,), dtype=torch.bool, device=device),
+            material_id=torch.full((n,), -1, dtype=torch.int64, device=device),
+            valid=torch.zeros((n,), dtype=torch.bool, device=device),
+        )
+
 
 def face_normal(ray_dir: torch.Tensor, outward: torch.Tensor):
     """(front_face, oriented normal): front where dot(dir, outward) <

@@ -1,6 +1,7 @@
-"""K1, K3 and K4 against their plain versions on a CUDA card (K1 at
-rtol = atol = 1e-4, K3 and K4 bit for bit), and renders on the card against
-the same renders on the CPU. These tests skip without a card. The file
+"""K1, K2, K0, K3 and K4 against their plain versions on a CUDA card (K1,
+K2 and K0 at rtol = atol = 1e-4, K3 and K4 bit for bit), and renders (and
+one backward of the differentiable wavefront) on the card against the same
+on the CPU. These tests skip without a card. The file
 imports no jax, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -127,3 +128,76 @@ def test_mesh_render_on_card_matches_cpu(cuda_device, mesh_scene):
     cpu = integrator.render(scene, camera, cfg, device="cpu")
     np.testing.assert_allclose(card.accum.cpu().numpy(), cpu.accum.numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+def _primary(preset, size, device, seed=7):
+    """A finalized preset's primary wavefront of one sample on `device`:
+    (scene, rays, ctx)."""
+    scene, camera = getattr(tpresets, preset)()
+    scene = finalize(scene, use_bvh=False)
+    rays, ctx = tcam.generate_rays(tcam.derive(camera, 1.0),
+                                   threefry.split(threefry.key(seed), 1)[0],
+                                   size, size, device=device)
+    return scene, rays, ctx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", PRESETS)
+def test_k2_matches_plain_on_card(preset, cuda_device):
+    scene, rays, ctx = _primary(preset, 64, cuda_device)
+    cfg = RenderConfig(width=64, height=64, spp=1, bounces=8)
+    before = bk.PATH_LAUNCHES
+    k2 = bk.path_trace(scene.packed, rays, ctx, cfg).cpu().numpy()
+    plain = bk.path_trace_reference(scene.packed, rays, ctx, cfg).cpu().numpy()
+    assert bk.PATH_LAUNCHES == before + 1
+    if preset == "smallpt_spheres":
+        assert (np.abs(k2 - plain) > 0.2).mean() < 0.05
+    else:
+        np.testing.assert_allclose(k2, plain, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("do_rr", [0, 1])
+def test_k0_matches_plain_on_card(do_rr, cuda_device):
+    from raytracingthenextweekcuda_tpu_torch.ops import rng
+
+    scene, rays, ctx = _primary("cornell_box", 64, cuda_device)
+    cfg = RenderConfig(width=64, height=64, spp=1, bounces=4,
+                       russian_roulette=True, rr_start_bounce=0)
+    state = bk.planar_state(rays)
+    state = bk.bounce_step_reference(
+        scene.packed, state, rng.bounce_uniforms(ctx.pixel_id, ctx.base0, ctx.base1, 0),
+        0, cfg)
+    u4 = rng.bounce_uniforms(ctx.pixel_id, ctx.base0, ctx.base1, 1)
+    before = bk.BOUNCE_LAUNCHES
+    k0 = bk.bounce_step(scene.packed, state, u4, do_rr, cfg)
+    plain = bk.bounce_step_reference(scene.packed, state, u4, do_rr, cfg)
+    assert bk.BOUNCE_LAUNCHES == before + 1
+    assert torch.equal(k0[7], plain[7])
+    for k in range(14):
+        np.testing.assert_allclose(k0[k].cpu().numpy(), plain[k].cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=f"row {k}")
+
+
+@pytest.mark.cuda
+def test_wavefront_backward_on_card_matches_cpu(cuda_device):
+    """fused_bounce=False on the card: K3 selects, the torch recompute and
+    BSDF differentiate; the G-buffer and its depth gradient equal the CPU's."""
+    from raytracingthenextweekcuda_tpu_torch.models.scene import with_leaves
+
+    scene, camera = tpresets.diffuse_sphere_plane()
+    scene = finalize(scene)
+    cfg = RenderConfig(width=24, height=24, spp=2, bounces=4, fused_bounce=False)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        c = torch.tensor(np.asarray(scene.spheres.center0), device=dev,
+                         requires_grad=True)
+        live = with_leaves(scene, {"spheres.center0": c, "spheres.center1": c})
+        g = integrator.render_gbuffer(live, camera, threefry.key(1), cfg, 2,
+                                      device=dev)
+        (g["depth"].mean() + g["radiance"].mean()).backward()
+        out[dev.type] = (g["radiance"].detach().cpu().numpy(),
+                         g["depth"].detach().cpu().numpy(), c.grad.cpu().numpy())
+    for card, cpu in zip(out["cuda"], out["cpu"]):
+        assert np.isfinite(card).all()
+        np.testing.assert_allclose(card, cpu, rtol=1e-3, atol=1e-5)

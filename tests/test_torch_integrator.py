@@ -1,7 +1,9 @@
-"""The port's offline render against the JAX reference, its device rules,
-what it refuses, and that the port package never imports JAX."""
+"""The port's offline render against the JAX reference through each of its
+engines, its device rules, what it refuses, and that the port package never
+imports JAX."""
 
 import ast
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -62,13 +64,57 @@ def test_cuda_request_without_cuda_raises(cornell, monkeypatch):
     assert bk.KERNEL_LAUNCHES == before
 
 
-def test_ineligible_scenes_raise(cornell):
+def test_differentiable_wavefront_matches_reference(jax_cornell_film, cornell):
+    """fused_bounce=False on a finalized scene: the torch wavefront over K3,
+    per sample, gives the reference's image (and so K1's)."""
     scene, camera = cornell
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        integrator.render(scene, camera, RenderConfig(**CFG, fused_bounce=False))
-    unpacked, _ = presets.cornell_box()
-    with pytest.raises(NotImplementedError, match="finalize"):
-        integrator.render(unpacked, camera, RenderConfig(**CFG))
+    before = bk.KERNEL_LAUNCHES
+    film = integrator.render(scene, camera, RenderConfig(**CFG, fused_bounce=False))
+    assert bk.KERNEL_LAUNCHES == before
+    np.testing.assert_allclose(film.accum.numpy(),
+                               np.asarray(jax_cornell_film.accum),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_unfinalized_scene_matches_reference():
+    """An unpacked scene renders through the plain torch intersects."""
+    kw = dict(width=12, height=12, spp=2, bounces=4, spp_per_pass=2)
+    jscene, jcamera = jpresets.defocus_blur()
+    scene, camera = presets.defocus_blur()
+    ref = jintegrator.render(jscene, jcamera, JConfig(**kw))
+    film = integrator.render(scene, camera, RenderConfig(**kw))
+    np.testing.assert_allclose(film.accum.numpy(), np.asarray(ref.accum),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_lbvh_scenes_raise(cornell):
+    scene, camera = cornell
+    lbvh = dataclasses.replace(scene, bvh=object())
+    for fused in (True, False):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            integrator.render(lbvh, camera, RenderConfig(**CFG, fused_bounce=fused))
+    with pytest.raises(NotImplementedError, match="LBVH"):
+        integrator.render_gbuffer(lbvh, camera, np.zeros(2, np.uint32),
+                                  RenderConfig(**CFG), 1)
+
+
+def test_cli_render_mesh_takes_the_tile_bvh(tmp_path, monkeypatch):
+    """`render --preset mesh` finalizes with the automatic choice, so its
+    2,208 triangles go to the sorted wavefront over a tile-BVH."""
+    seen = []
+    sorted_pass = integrator._render_pass_sorted
+
+    def spy(scene, *args, **kw):
+        seen.append(scene.packed.leaf_bounds is not None)
+        return sorted_pass(scene, *args, **kw)
+
+    monkeypatch.setattr(integrator, "_render_pass_sorted", spy)
+    out = tmp_path / "m.png"
+    assert cli.main(["render", "--preset", "mesh", "--width", "6", "--height",
+                     "4", "--spp", "1", "--bounces", "2", "--device", "cpu",
+                     "--out", str(out)]) == 0
+    assert seen == [True]
+    assert read_png(str(out)).shape == (4, 6, 3)
 
 
 def test_cli_render_writes_png(tmp_path):
