@@ -4,10 +4,11 @@
 
 Phases, each printing one line or more:
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build: compile K1, K2 and K0 (csrc/render_kernel.cu), K3
-     (csrc/intersect_kernel.cu) and K4 (csrc/bvh_winner_kernel.cu) with nvcc,
-     one process per source; ptxas's registers and spills per kernel; the
-     tile-BVH builder in use;
+  2. build: compile K1, K2 and K0 (csrc/render_kernel.cu, each with and
+     without the tile-BVH walk), K3 (csrc/intersect_kernel.cu) and K4
+     (csrc/bvh_winner_kernel.cu) with nvcc, one process per source;
+     ptxas's registers and spills per kernel, K1 without the walk held at
+     72 registers and 92 bytes of spills or fewer; the tile-BVH builder;
   3. K1 vs plain: K1 against its plain torch version on the same CUDA
      tensors, 5 presets at 64x64, 4 spp, 6 bounces, plus Cornell with
      Russian roulette and with the sky off (rtol = atol = 1e-4; smallpt by
@@ -50,11 +51,35 @@ Phases, each printing one line or more:
  13. times: K2 and K0 beside their plain versions (CUDA events; plain:
      host clock), K1 after the bounce refactor, and on the host clock the
      G-buffer render, the fused_bounce=False render, one fit step and the
-     backward of a 512x512, 10-bounce G-buffer with its peak memory.
+     backward of a 512x512, 10-bounce G-buffer with its peak memory;
+ 14. the tile-BVH walk vs plain: K1, K2 and K0 on the tile-BVH packs of
+     both mesh stand-ins (2 and 32 leaves of 768) against their plain
+     versions, which walk the tree as one consensus block (128x128,
+     Russian roulette on; rtol = atol = 1e-4, 0 expected);
+ 15. the walk's main paths, with the sorted engine turned off as the
+     reference's cross-engine check does: the mesh benchmark (published
+     stand-in, 512x512, 32 spp, 10 bounces) through integrator.render and
+     K1, held against phase 8's sorted image (1e-4 but for at most 1 in
+     10^4 values, means at 1e-4), counting K1's launches; a 512x512 G-buffer
+     through K2, its radiance against render_pass through K1; ten
+     bounce_step calls through K0 against K2 on the same rays; then the
+     three kernels' times beside their plain versions' and their bounds;
+ 16. the LBVH regime: the published stand-in unfinalized with an LBVH
+     over its mesh (the walk in torch takes the brute-force triangle
+     test's place), rendered at 128x128 on the card against the CPU
+     (1e-4), the walk's steps, and the gradient of the depth mean with
+     respect to a shift of every vertex on the card against the CPU's
+     (rtol 1e-3); the walk against the brute-force test on the card on
+     primary and random rays (the same hits); the same scene finalized
+     (K3 over the pack, the walk merged on top) on the card against the
+     CPU (1e-4), counting K3's launches.
 
-Then one JSON line with the kernels' numbers, the nvidia-smi line, and a
-last JSON line {"ok": true, "device": {...}}. Any failure raises and exits
-non-zero; without a CUDA device it exits non-zero before printing results.
+Then one JSON line with the kernels' numbers (each with its bound: the
+larger of its bytes over 3.35 TB/s and its float32 operations over 67
+TFLOP/s plus its float64 operations over 34 TFLOP/s, for the work this
+run's inputs need), the nvidia-smi line, and a last JSON line {"ok": true,
+"device": {...}}. Any failure raises and exits non-zero; without a CUDA
+device it exits non-zero before printing results.
 """
 
 from __future__ import annotations
@@ -138,17 +163,124 @@ def _check_equal(name, t_k, c_k, t_p, c_p) -> float:
 
 
 def _ptxas_by_entry(log: str) -> dict:
-    """ptxas -v's register and spill lines, per entry function."""
+    """ptxas -v's register and spill lines, per entry function; a kernel
+    templated on the tile-BVH walk is named `name<false>` or `name<true>`."""
     out, entry = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln or "Function properties for" in ln:
             # a device function's properties (e.g. the trig slow path) end
             # the entry's lines
-            m = re.search(r"\d([a-z_]+_kernel)E", ln)
-            entry = m.group(1) if m else None
+            m = re.search(r"\d([a-z_]+_kernel)(ILb([01])E)?E", ln)
+            entry = None
+            if m:
+                entry = m.group(1) + ("" if m.group(2) is None else
+                                      "<true>" if m.group(3) == "1" else "<false>")
         elif entry and ("registers" in ln or "spill" in ln):
             out.setdefault(entry, []).append(ln.split(":", 1)[-1].strip())
     return out
+
+
+# The bounds: the least time the card could take for a kernel's work, the
+# larger of its bytes (each input read once, each output written once) over
+# the HBM rate and its operations over the peak rate of their type
+# (float32 outside the tensor cores, and float64 for the ops/fmath.py
+# functions), from NVIDIA's published H100 SXM figures.
+HBM_BYTES_S = 3.35e12
+FP32_OPS_S = 67e12
+FP64_OPS_S = 34e12
+# The work model, counted from the kernels' bodies (adds, multiplies,
+# divisions, square roots, min/max, compares and selects; not the logical
+# ands): float32 operations of one ray's test against one sphere, plane,
+# Havel triangle or quad column (with the update of the best t and its
+# column; the tile-BVH walk's leaf loop is the same test), oriented box,
+# Möller-Trumbore triangle (K3) and tile-BVH node or leaf box; and an
+# estimate of the shading of a path-bounce (BSDF, pcg4d and bookkeeping),
+# whose ops/fmath.py functions (a reciprocal square root, a sine and
+# cosine pair and a square root) run in float64. The work is what the
+# plain versions counted for this run's inputs (ops/cuda/work.py): live
+# path-bounces, box tests, and the triangle tests of the leaves the rays
+# enter, a leaf's real triangles and not the zero padding of its tile.
+SPHERE_OPS = 40
+PLANE_OPS = 34
+HAVEL_OPS = 41
+BOX_OPS = 99
+MT_OPS = 54
+NODE_OPS = 25
+SHADE_OPS = 100
+SHADE_F64_OPS = 80
+# Per packed type of the bounce kernels: spheres, planes, Havel triangles,
+# Havel quads, oriented boxes.
+PRIM_OPS = (SPHERE_OPS, PLANE_OPS, HAVEL_OPS, HAVEL_OPS, BOX_OPS)
+
+
+def _bound(nbytes: float, ops32: float, ops64: float = 0.0) -> tuple:
+    """(bound_ms, bound_by) of a kernel's bytes and operations."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = ops32 / FP32_OPS_S + ops64 / FP64_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _scene_bytes(inp) -> int:
+    """The bytes of the bounce kernels' scene inputs: the packed rows and,
+    on a tile-BVH pack, the node arrays and the Havel rows."""
+    extra = (inp.bvh_bounds, inp.bvh_meta, inp.trih) if inp.trih is not None else ()
+    return sum(t.numel() * t.element_size() for t in (inp.scene, *extra))
+
+
+def _bounce_ops(inp, counts: dict, scale: float = 1.0) -> tuple:
+    """(float32, float64) operations of the bounce kernels' work as the
+    plain versions counted it (ops/cuda/work.py), times `scale`."""
+    per = sum(o * c for o, c in zip(PRIM_OPS, inp.counts)) + SHADE_OPS
+    ops32 = (counts["bounces"] * per + counts["box_tests"] * NODE_OPS
+             + counts["triangle_tests"] * HAVEL_OPS)
+    return ops32 * scale, counts["bounces"] * SHADE_F64_OPS * scale
+
+
+def _k3_bound(rays, alive, rows) -> tuple:
+    """K3's bound: each live ray tests every sphere, plane and triangle of
+    `rows`; it reads the rays, the alive flags and the rows and writes (t,
+    code)."""
+    n, live = rays.count, int(alive.sum())
+    S, P, T = rows.counts
+    nbytes = rows.rows.numel() * 4 + n * (12 + 12 + 4 + 1) + n * 8
+    return _bound(nbytes, live * (SPHERE_OPS * S + PLANE_OPS * P + MT_OPS * T))
+
+
+def _k4_bound(origin, wl, leaves, counts) -> tuple:
+    """K4's bound: the live rays' tests of the leaf boxes of their blocks'
+    lists and the triangle tests of the leaves they enter in front of their
+    best t, as its plain version counted them; it reads the rays, their
+    ceilings, the work lists and the leaves and writes (t, code)."""
+    nbytes = (origin.shape[0] * (12 + 12 + 1 + 4 + 8)
+              + sum(t.numel() * t.element_size() for t in wl)
+              + sum(t.numel() * t.element_size()
+                    for t in (leaves.leaf_bounds, leaves.leaf_tiles, leaves.trih)))
+    return _bound(nbytes, counts["triangle_tests"] * HAVEL_OPS
+                  + counts["box_tests"] * NODE_OPS)
+
+
+def _render_bound(inp, counts, scale: float = 1.0) -> tuple:
+    """K1's bound: the scene, the frame, the key words and the pixel ids in,
+    (N, 3) radiance out; the work `counts` holds, times `scale`."""
+    n = inp.pid.numel()
+    return _bound(_scene_bytes(inp) + 84 + inp.words.numel() * 4 + n * 4 + n * 12,
+                  *_bounce_ops(inp, counts, scale))
+
+
+def _path_bound(inp, counts) -> tuple:
+    """K2's bound: the scene and (N,) rays with times and pixel ids in,
+    (N, 3) radiance out."""
+    n = inp.pid.numel()
+    return _bound(_scene_bytes(inp) + n * (12 + 12 + 4 + 4) + n * 12,
+                  *_bounce_ops(inp, counts))
+
+
+def _step_bound(inp, counts) -> tuple:
+    """K0's bound: the scene, the (13, N) carry, the alive flags and the
+    (N, 4) uniforms in, the (12, N) carry and the alive flags out."""
+    n = inp.alive.numel()
+    return _bound(_scene_bytes(inp) + n * (13 * 4 + 4 + 16) + n * (12 * 4 + 4),
+                  *_bounce_ops(inp, counts))
 
 
 def _check_close(name, out, plain, smallpt=False) -> float:
@@ -190,6 +322,7 @@ def main() -> None:
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import work
     from raytracingthenextweekcuda_tpu_torch.ops.fused import mesh_query
     from raytracingthenextweekcuda_tpu_torch.ops.rays import Rays
 
@@ -209,9 +342,28 @@ def main() -> None:
           f"(nvcc {build.BUILD_SECONDS:.2f} s, one process per source) -> "
           f"{build.library_path().name} | tile-BVH builder: {builder_name()}",
           flush=True)
+    ptxas_lines = {}
     for src, log in sorted(build.BUILD_LOGS.items()):
         for entry, ptxas in _ptxas_by_entry(log).items():
-            print(f"[2 build] {src} {entry} ptxas: {'; '.join(ptxas)}", flush=True)
+            ptxas_lines[entry] = "; ".join(ptxas)
+            print(f"[2 build] {src} {entry} ptxas: {ptxas_lines[entry]}", flush=True)
+    # K1's instantiation without the tile-BVH walk keeps the registers and
+    # spills it had before the walk was added (72 and 92 bytes).
+    regs_spills = {}
+    for entry in ("render_kernel<false>", "render_kernel<true>"):
+        line = ptxas_lines.get(entry, "")
+        regs = re.search(r"Used (\d+) registers", line)
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if not (regs and spill):
+            raise AssertionError(f"no ptxas registers and spills for K1 {entry}")
+        regs_spills[entry] = (int(regs.group(1)), int(spill.group(1)))
+    regs, spill = regs_spills["render_kernel<false>"]
+    if regs > 72 or spill > 92:
+        raise AssertionError(f"K1 without the walk: {regs} registers and {spill} "
+                             "spill bytes, above 72 and 92")
+    print(f"[2 build] K1 registers, spill bytes: without the tile-BVH walk "
+          f"{regs_spills['render_kernel<false>']}, with it "
+          f"{regs_spills['render_kernel<true>']}", flush=True)
 
     # 3. K1 vs plain on the card
     cases = [
@@ -280,8 +432,10 @@ def main() -> None:
     k1_ms = _event_ms(lambda: bk.render_kernel(inp), reps=3)
     plain_spp = 32
     sub = bk.render_inputs(cornell.packed, frame, words[:plain_spp], cfg, device=dev)
+    work.reset()
     k1_plain_ms, plain = _host_ms(lambda: bk.render_reference(sub))
     k1_plain_ms *= 128 / plain_spp
+    k1_bound = _render_bound(inp, work.WORK, 128 / plain_spp)
     head_err = _check_close("K1 headline", bk.render_kernel(sub), plain)
     k1_err = max(k1_err, head_err)
     print(f"[5 K1 plain time] headline config: K1 {k1_ms:.3f} ms (CUDA events, "
@@ -368,8 +522,8 @@ def main() -> None:
     if k3_launches <= 0 or k4_launches <= 0:
         raise AssertionError(f"the mesh render launched K3 {k3_launches} and "
                              f"K4 {k4_launches} times")
-    mean = film.mean.cpu().numpy()
-    if mean.shape != (512, 512, 3) or not np.isfinite(mean).all():
+    sorted_mesh = film.mean.cpu().numpy()
+    if sorted_mesh.shape != (512, 512, 3) or not np.isfinite(sorted_mesh).all():
         raise AssertionError("mesh image not finite or misshapen")
     # The stand-in's UV sphere winds its triangles inward, so with back
     # faces culled a camera ray crosses the near side and hits the far side
@@ -388,18 +542,21 @@ def main() -> None:
           flush=True)
 
     # 9. K3 and K4 device times on the full-size wavefronts
-    times = {}
+    times, bounds = {}, {}
     for front, (rays, alive, ds, args) in timing_inputs.items():
         k3_ms = _event_ms(lambda: k3.intersect_packed(rays, ds.analytic, EPSILON,
                                                       alive=alive), reps=10)
         k3p_ms, _ = _host_ms(lambda: k3.closest_hit_reference(
             rays.origin, rays.direction, rays.time, alive, ds.analytic, EPSILON))
         k4_ms = _event_ms(lambda: k4.winner(*args, ds.leaves, EPSILON), reps=10)
+        work.reset()
         k4p_ms, _ = _host_ms(lambda: k4.winner_reference(*args, ds.leaves, EPSILON))
         wl_ms = _event_ms(lambda: k4.winner_inputs(rays, ds.leaves, EPSILON,
                                                    args[2][:rays.count],
                                                    args[3][:rays.count]), reps=3)
         times[front] = (k3_ms, k3p_ms, k4_ms, k4p_ms)
+        bounds[front] = (_k3_bound(rays, alive, ds.analytic),
+                         _k4_bound(args[0], args[4], ds.leaves, work.WORK))
         print(f"[9 kernel times] published/{front} ({rays.count} rays): K3 "
               f"{k3_ms:.4f} ms vs plain {k3p_ms:.3f} ms | K4 {k4_ms:.4f} ms vs "
               f"plain {k4p_ms:.3f} ms | work-list build {wl_ms:.3f} ms "
@@ -417,7 +574,9 @@ def main() -> None:
                                   head.height, device=dev)
     path_inp = bk.path_inputs(cornell.packed, rays, ctx, head)
     k2_out = bk.path_kernel(path_inp)
+    work.reset()
     k2_err = _check_close("K2 cornell 512x512", k2_out, bk.path_reference(path_inp))
+    k2_bound = _path_bound(path_inp, work.WORK)
     print(f"[10 K2 vs plain] cornell primary wavefront 512x512, 1 sample, 10 "
           f"bounces: max|diff| {k2_err:.3e} (rtol=atol=1e-4) mean "
           f"{float(k2_out.mean()):.6f}", flush=True)
@@ -596,7 +755,9 @@ def main() -> None:
     k2p_ms, _ = _host_ms(lambda: bk.path_reference(path_inp))
     k0_inp = bk.bounce_inputs(cornell.packed, state, u4, 1, rr_cfg)
     k0_ms = _event_ms(lambda: bk.bounce_kernel(k0_inp), reps=10)
+    work.reset()
     k0p_ms, _ = _host_ms(lambda: bk.bounce_reference(k0_inp))
+    k0_bound = _step_bound(k0_inp, work.WORK)
     gb_ms, _ = _host_ms(lambda: integrator.render_gbuffer(cornell, camera, key, head,
                                                           head.spp, device=dev))
     fcfg = fit.fit_config(96, 96, 8)
@@ -626,33 +787,306 @@ def main() -> None:
           f"forward and backward {bwd_ms:.1f} ms, peak memory {peak_gib:.3f} GiB "
           f"above the {base_mem / 2**30:.3f} GiB held before | {card}", flush=True)
 
+    # 14. K1, K2 and K0 on tile-BVH packs against their plain versions
+    meshes = {}
+    bvh_err = dict.fromkeys(("K1", "K2", "K0"), 0.0)
+    small = RenderConfig(width=128, height=128, spp=2, bounces=6, spp_per_pass=2,
+                         russian_roulette=True, rr_start_bounce=3)
+    for label, make, _ in stand_ins:
+        scene, mcam, _ = make()
+        scene = finalize(scene)
+        meshes[label] = (scene, mcam)
+        frame = cam.derive(mcam, small.aspect_ratio)
+        words = threefry.split(threefry.key(11), small.spp)
+        inp = bk.render_inputs(scene.packed, frame, words, small, device=dev)
+        e1 = _check_close(f"K1-BVH {label}", bk.render_kernel(inp),
+                          bk.render_reference(inp))
+        rays, ctx = cam.generate_rays(frame, words[0], small.width, small.height,
+                                      device=dev)
+        e2 = _check_close(f"K2-BVH {label}",
+                          bk.path_trace(scene.packed, rays, ctx, small),
+                          bk.path_trace_reference(scene.packed, rays, ctx, small))
+        state = bk.bounce_step_reference(
+            scene.packed, bk.planar_state(rays),
+            rng.bounce_uniforms(ctx.pixel_id, ctx.base0, ctx.base1, 0), 0, small)
+        u4 = rng.bounce_uniforms(ctx.pixel_id, ctx.base0, ctx.base1, 1)
+        e0 = 0.0
+        for do_rr in (0, 1):
+            k0 = bk.bounce_step(scene.packed, state, u4, do_rr, small)
+            plain = bk.bounce_step_reference(scene.packed, state, u4, do_rr, small)
+            if not torch.equal(k0[7], plain[7]):
+                raise AssertionError(f"K0-BVH {label} do_rr={do_rr}: alive flags differ")
+            e0 = max([e0] + [_check_close(f"K0-BVH {label} do_rr={do_rr} row {r}",
+                                          k0[r], plain[r]) for r in range(14)])
+        for k, e in zip(("K1", "K2", "K0"), (e1, e2, e0)):
+            bvh_err[k] = max(bvh_err[k], e)
+        print(f"[14 BVH kernels vs plain] {label} stand-in ("
+              f"{scene.packed.bvh_bounds.shape[1]} nodes, "
+              f"{scene.packed.leaf_tiles.shape[1]} leaves of {inp.leaf_tile}), "
+              f"128x128, RR from bounce 3: K1 (2 spp, 6 bounces) max|diff| {e1:.3e}"
+              f" | K2 (one sample) {e2:.3e} | K0 (bounce 2, do_rr 0 and 1) "
+              f"{e0:.3e} (rtol=atol=1e-4)", flush=True)
+
+    # 15. the main paths of the tile-BVH walk: the mesh benchmark's render
+    # through K1 and a G-buffer through K2, with the sorted engine turned
+    # off as the reference's cross-engine check does, and ten bounce_step
+    # calls through K0
+    mesh, mcam = meshes["published"]
+    sorted_eligible = integrator._sorted_eligible
+    integrator._sorted_eligible = lambda *_: False
+    try:
+        bk.KERNEL_LAUNCHES = bk.KERNEL_BVH_LAUNCHES = 0
+        k1b_render_ms, film = _host_ms(
+            lambda: integrator.render(mesh, mcam, mesh_cfg, device=dev))
+        k1b_launches = bk.KERNEL_BVH_LAUNCHES
+        if not k1b_launches == bk.KERNEL_LAUNCHES == len(mesh_cfg.passes()):
+            raise AssertionError(f"the forced mesh render launched K1 "
+                                 f"{bk.KERNEL_LAUNCHES} times, {k1b_launches} "
+                                 "with the walk")
+        forced = film.mean.cpu().numpy()
+        if not np.isfinite(forced).all():
+            raise AssertionError("K1-BVH mesh image not finite")
+        off = ~np.isclose(forced, sorted_mesh, rtol=1e-4, atol=1e-4)
+        if off.mean() > 1e-4:
+            raise AssertionError(f"K1-BVH vs the sorted wavefront: {int(off.sum())} "
+                                 f"of {off.size} values apart")
+        np.testing.assert_allclose(forced.mean(), sorted_mesh.mean(), rtol=1e-4)
+        print(f"[15 K1-BVH main path] published stand-in 512x512, 32 spp, 10 "
+              f"bounces, passes of 16, through integrator.render: "
+              f"{k1b_render_ms:.1f} ms host ({mesh_result['render_ms']:.1f} ms "
+              f"sorted) | K1 launches {k1b_launches}, all with the walk | vs the "
+              f"sorted wavefront: {int(off.sum())} of {off.size} values apart by "
+              f"> 1e-4 (max {float(np.abs(forced - sorted_mesh).max()):.3e}), means"
+              f" {float(forced.mean()):.6f} vs {float(sorted_mesh.mean()):.6f} | "
+              f"{card}", flush=True)
+
+        gcfg = RenderConfig(width=512, height=512, spp=2, bounces=10)
+        bk.PATH_LAUNCHES = bk.PATH_BVH_LAUNCHES = bk.KERNEL_LAUNCHES = 0
+        gbuf = integrator.render_gbuffer(mesh, mcam, key, gcfg, gcfg.spp, device=dev)
+        k2b_launches = bk.PATH_BVH_LAUNCHES
+        if not k2b_launches == bk.PATH_LAUNCHES == gcfg.spp or bk.KERNEL_LAUNCHES:
+            raise AssertionError(f"the forced mesh G-buffer launched K2 "
+                                 f"{bk.PATH_LAUNCHES} times, {k2b_launches} with "
+                                 f"the walk, and K1 {bk.KERNEL_LAUNCHES}")
+        via_k1 = integrator.render_pass(mesh, mcam, key, gcfg, gcfg.spp, device=dev)
+        err = _check_close("K2-BVH G-buffer radiance vs K1-BVH", gbuf["radiance"],
+                           via_k1)
+        bvh_err["K2"] = max(bvh_err["K2"], err)
+        print(f"[15 K2-BVH main path] forced render_gbuffer, published stand-in "
+              f"512x512, 2 spp, 10 bounces: K2 launches {k2b_launches}, all with "
+              f"the walk | radiance vs render_pass (K1-BVH): max|diff| {err:.3e} | "
+              f"hit mask mean {float(gbuf['hit_mask'].mean()):.4f}", flush=True)
+    finally:
+        integrator._sorted_eligible = sorted_eligible
+
+    frame = cam.derive(mcam, mesh_cfg.aspect_ratio)
+    mrays, mctx = cam.generate_rays(frame, threefry.split(key, 1)[0], 512, 512,
+                                    device=dev)
+    mpath = bk.path_inputs(mesh.packed, mrays, mctx, head)
+    k2b_out = bk.path_kernel(mpath)
+    bk.BOUNCE_LAUNCHES = bk.BOUNCE_BVH_LAUNCHES = 0
+    carry = bk.planar_state(mrays)
+    for b in range(head.bounces):
+        carry = bk.bounce_step(mesh.packed, carry,
+                               rng.bounce_uniforms(mctx.pixel_id, mctx.base0,
+                                                   mctx.base1, b),
+                               b >= head.rr_start_bounce, head)
+    k0b_launches = bk.BOUNCE_BVH_LAUNCHES
+    if not k0b_launches == bk.BOUNCE_LAUNCHES == head.bounces:
+        raise AssertionError(f"ten bounce_step calls on the mesh launched K0 "
+                             f"{bk.BOUNCE_LAUNCHES} times, {k0b_launches} with the walk")
+    err = _check_close("ten K0-BVH steps vs K2-BVH", torch.stack(carry[11:14], 1),
+                       k2b_out)
+    bvh_err["K0"] = max(bvh_err["K0"], err)
+    print(f"[15 K0-BVH main path] {head.bounces} bounce_step calls on the "
+          f"published stand-in's 512x512 wavefront: K0 launches {k0b_launches}, "
+          f"all with the walk | radiance vs K2-BVH: max|diff| {err:.3e}", flush=True)
+
+    # The walk's times: K1-BVH over one 16-spp pass of the mesh benchmark
+    # (its plain version at 1 spp, scaled), K2-BVH over the 512x512
+    # wavefront (10 bounces), K0-BVH over its second bounce.
+    pass_spp = mesh_cfg.spp_per_pass
+    words = threefry.split(threefry.fold_in(threefry.key(mesh_cfg.seed), 0), pass_spp)
+    inp = bk.render_inputs(mesh.packed, frame, words, mesh_cfg, device=dev)
+    k1b_ms = _event_ms(lambda: bk.render_kernel(inp), reps=3)
+    sub = bk.render_inputs(mesh.packed, frame, words[:1], mesh_cfg, device=dev)
+    work.reset()
+    k1b_plain_ms, plain = _host_ms(lambda: bk.render_reference(sub))
+    k1b_plain_ms *= pass_spp
+    k1b_bound = _render_bound(inp, work.WORK, pass_spp)
+    work_1spp = dict(work.WORK)
+    bvh_err["K1"] = max(bvh_err["K1"], _check_close(
+        "K1-BVH 512x512 1 spp", bk.render_kernel(sub), plain))
+    k2b_ms = _event_ms(lambda: bk.path_kernel(mpath), reps=5)
+    work.reset()
+    k2b_plain_ms, plain = _host_ms(lambda: bk.path_reference(mpath))
+    k2b_bound = _path_bound(mpath, work.WORK)
+    bvh_err["K2"] = max(bvh_err["K2"], _check_close("K2-BVH 512x512", k2b_out, plain))
+    state = bk.bounce_step_reference(
+        mesh.packed, bk.planar_state(mrays),
+        rng.bounce_uniforms(mctx.pixel_id, mctx.base0, mctx.base1, 0), 0, rr_cfg)
+    k0b_inp = bk.bounce_inputs(mesh.packed, state,
+                               rng.bounce_uniforms(mctx.pixel_id, mctx.base0,
+                                                   mctx.base1, 1), 1, rr_cfg)
+    k0b_ms = _event_ms(lambda: bk.bounce_kernel(k0b_inp), reps=10)
+    work.reset()
+    k0b_plain_ms, plain = _host_ms(lambda: bk.bounce_reference(k0b_inp))
+    k0b_bound = _step_bound(k0b_inp, work.WORK)
+    k0b = bk.bounce_kernel(k0b_inp)
+    if not torch.equal(k0b[1], plain[1]):
+        raise AssertionError("K0-BVH 512x512: alive flags differ")
+    bvh_err["K0"] = max(bvh_err["K0"], _check_close("K0-BVH 512x512", k0b[0], plain[0]))
+    print(f"[15 walk times] K1-BVH {k1b_ms:.3f} ms a 16-spp pass vs plain "
+          f"{k1b_plain_ms:.1f} ms (1 spp x16; its work: "
+          f"{work_1spp['bounces']} path-bounces, {work_1spp['box_tests']} node "
+          f"tests, {work_1spp['leaf_visits']} leaf visits, "
+          f"{work_1spp['triangle_tests']} triangle tests) | K2-BVH {k2b_ms:.3f} "
+          f"ms vs plain {k2b_plain_ms:.1f} ms | K0-BVH {k0b_ms:.4f} ms vs plain "
+          f"{k0b_plain_ms:.1f} ms | CUDA events; plain: host clock, one run | "
+          f"{card}", flush=True)
+    print(f"[15 walk bounds] K1-BVH {k1b_bound[0]:.3f} ms ({k1b_bound[1]}) | "
+          f"K2-BVH {k2b_bound[0]:.4f} ms ({k2b_bound[1]}) | K0-BVH "
+          f"{k0b_bound[0]:.5f} ms ({k0b_bound[1]})", flush=True)
+
+    # 16. the LBVH regime. On an unfinalized scene the LBVH walk takes the
+    # place of the brute-force triangle test, so the render and its
+    # gradient on the card against the CPU hold the walk itself; then the
+    # walk against the brute-force test on the same rays on the card; then
+    # the finalized regime, the reference's two-level dispatch, where K3
+    # tests the pack (which holds the mesh too) and the walk's hits are
+    # merged on top.
+    from raytracingthenextweekcuda_tpu_torch.ops import intersect, traverse
+    from raytracingthenextweekcuda_tpu_torch.ops.bvh import build_bvh
+
+    raw, lcam, _ = bench_scenes.published_mesh_scene()
+    lbvh = build_bvh(raw.triangles)
+    lscene = dataclasses.replace(raw, bvh=lbvh)
+    lcfg = RenderConfig(width=128, height=128, spp=2, bounces=4, spp_per_pass=2)
+    k3.KERNEL_LAUNCHES = bk.KERNEL_LAUNCHES = bk.PATH_LAUNCHES = 0
+    traverse.STEPS = 0
+    lbvh_ms, film = _host_ms(lambda: integrator.render(lscene, lcam, lcfg, device=dev))
+    lbvh_steps = traverse.STEPS
+    if (lbvh_steps <= 0 or k3.KERNEL_LAUNCHES or bk.KERNEL_LAUNCHES
+            or bk.PATH_LAUNCHES):
+        raise AssertionError(f"the unfinalized LBVH render walked {lbvh_steps} "
+                             f"steps and launched K3 {k3.KERNEL_LAUNCHES}, K1 "
+                             f"{bk.KERNEL_LAUNCHES} and K2 {bk.PATH_LAUNCHES} times")
+    on_card = film.accum.cpu().numpy()
+    on_cpu = integrator.render(lscene, lcam, lcfg, device="cpu").accum.numpy()
+    lbvh_err = _check_close("LBVH render card vs CPU", torch.from_numpy(on_card),
+                            torch.from_numpy(on_cpu))
+
+    def lbvh_grad(device):
+        dz = torch.zeros((), device=device, requires_grad=True)
+        shift = torch.zeros(3, device=device)
+        v = (torch.from_numpy(np.asarray(raw.triangles.vertices)).to(device)
+             + torch.stack([shift[0], shift[1], dz]))
+        g = integrator.render_gbuffer(with_leaves(lscene, {"triangles.vertices": v}),
+                                      lcam, key, RenderConfig(width=128, height=128,
+                                                              spp=1, bounces=2),
+                                      1, device=device)
+        g["depth"].mean().backward()
+        return float(dz.grad)
+
+    lgrad_ms, g_card = _host_ms(lambda: lbvh_grad(dev))
+    g_cpu = lbvh_grad(torch.device("cpu"))
+    if not np.isfinite(g_card) or g_card == 0.0:
+        raise AssertionError(f"LBVH depth gradient on the card: {g_card}")
+    np.testing.assert_allclose(g_card, g_cpu, rtol=1e-3, atol=1e-6)
+    print(f"[16 LBVH] published stand-in unfinalized with an LBVH over its "
+          f"{raw.triangles.count} triangles (the walk replaces the brute-force "
+          f"test), 128x128, 2 spp, 4 bounces: {lbvh_ms:.1f} ms host on the card |"
+          f" LBVH walk steps {lbvh_steps}, no kernel launched | card vs CPU "
+          f"max|diff| {lbvh_err:.3e} (rtol=atol=1e-4) | d mean(depth) / d vertex "
+          f"z (128x128, 1 spp, 2 bounces): card {g_card:.6e} vs CPU {g_cpu:.6e} "
+          f"(rtol 1e-3), forward and backward {lgrad_ms:.1f} ms host | {card}",
+          flush=True)
+
+    # The walk against the brute-force test on the card: the camera's
+    # 256x256 primary rays and rays from random points of the scene's box in
+    # random directions. The same triangles hit (valid and material equal),
+    # t at rtol 1e-5.
+    prays, _ = cam.generate_rays(cam.derive(lcam, 1.0), threefry.split(key, 1)[0],
+                                 256, 256, device=dev)
+    verts = np.asarray(raw.triangles.vertices, np.float32).reshape(-1, 3)
+    gen = np.random.default_rng(5)
+    m = 1 << 16
+    o = torch.from_numpy(gen.uniform(verts.min(0) - 1.0, verts.max(0) + 1.0,
+                                     (m, 3)).astype(np.float32)).to(dev)
+    d = torch.from_numpy(gen.normal(size=(m, 3)).astype(np.float32)).to(dev)
+    d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+    dev_bvh = lbvh.to(dev)
+    walk_hits = 0
+    for label, rays in (("primary", prays),
+                        ("random", Rays(o, d, torch.zeros((m,), device=dev)))):
+        brute = intersect.intersect_triangles(rays, raw.triangles, EPSILON, float("inf"))
+        accel = traverse.intersect_bvh(rays, raw.triangles, dev_bvh, EPSILON,
+                                       float("inf"))
+        valid = brute.valid
+        if not (torch.equal(accel.valid, valid)
+                and torch.equal(accel.material_id, brute.material_id)):
+            raise AssertionError(f"LBVH walk vs brute force, {label} rays: "
+                                 f"{int((accel.valid != valid).sum())} hits differ")
+        np.testing.assert_allclose(accel.t[valid].cpu().numpy(),
+                                   brute.t[valid].cpu().numpy(), rtol=1e-5, atol=1e-6)
+        walk_hits += int(valid.sum())
+        print(f"[16 LBVH] walk vs brute force on the card, {label} rays "
+              f"({rays.count}): the same {int(valid.sum())} hits, t max|diff| "
+              f"{float((accel.t - brute.t)[valid].abs().max()):.3e}", flush=True)
+    if walk_hits == 0:
+        raise AssertionError("LBVH walk vs brute force: no ray hit the mesh")
+
+    fscene = dataclasses.replace(finalize(raw, use_bvh=False), bvh=lbvh)
+    k3.KERNEL_LAUNCHES = bk.KERNEL_LAUNCHES = bk.PATH_LAUNCHES = 0
+    traverse.STEPS = 0
+    fin_ms, film = _host_ms(lambda: integrator.render(fscene, lcam, lcfg, device=dev))
+    fin_k3, fin_steps = k3.KERNEL_LAUNCHES, traverse.STEPS
+    if fin_k3 <= 0 or fin_steps <= 0 or bk.KERNEL_LAUNCHES or bk.PATH_LAUNCHES:
+        raise AssertionError(f"the finalized LBVH render launched K3 {fin_k3} times,"
+                             f" K1 {bk.KERNEL_LAUNCHES}, K2 {bk.PATH_LAUNCHES}, and "
+                             f"walked {fin_steps} steps")
+    fin_err = _check_close("finalized LBVH render card vs CPU", film.accum.cpu(),
+                           integrator.render(fscene, lcam, lcfg, device="cpu").accum)
+    print(f"[16 LBVH] the same scene finalized (a brute-force pack, K3 over "
+          f"spheres, planes and the mesh, the walk merged on top), 128x128, 2 "
+          f"spp, 4 bounces: {fin_ms:.1f} ms host on the card (K3's brute-force "
+          f"mesh test included) | K3 launches {fin_k3}, LBVH walk steps "
+          f"{fin_steps} | card vs CPU max|diff| {fin_err:.3e} "
+          f"(rtol=atol=1e-4) | {card}", flush=True)
+
     k3_ms, k3p_ms, k4_ms, k4p_ms = times["primary"]
+    k3_bound, k4_bound = bounds["primary"]
+    src = "raytracingthenextweekcuda_tpu_torch/csrc/"
+    ref = "raytracingthenextweekcuda_tpu/ops/pallas/"
+    walk = f"{ref}bounce_kernel.py:820"  # the consensus walk in _bounce_core
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
+        # No single PyTorch call computes any of these functions: no
+        # library time.
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": None}
+
     print(json.dumps({"kernels": [
-        {"name": "K1 render_kernel", "route": "cuda",
-         "source": "raytracingthenextweekcuda_tpu_torch/csrc/render_kernel.cu",
-         "replaces": "raytracingthenextweekcuda_tpu/ops/pallas/bounce_kernel.py:1466",
-         "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": k1_plain_ms},
-        {"name": "K2 path_kernel", "route": "cuda",
-         "source": "raytracingthenextweekcuda_tpu_torch/csrc/render_kernel.cu",
-         "replaces": "raytracingthenextweekcuda_tpu/ops/pallas/bounce_kernel.py:1392",
-         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
-         "plain_ms": k2p_ms},
-        {"name": "K0 bounce_kernel", "route": "cuda",
-         "source": "raytracingthenextweekcuda_tpu_torch/csrc/render_kernel.cu",
-         "replaces": "raytracingthenextweekcuda_tpu/ops/pallas/bounce_kernel.py:1303",
-         "launches": k0_launches, "max_abs_err": k0_err, "ms": k0_ms,
-         "plain_ms": k0p_ms},
-        {"name": "K3 closest_hit_kernel", "route": "cuda",
-         "source": "raytracingthenextweekcuda_tpu_torch/csrc/intersect_kernel.cu",
-         "replaces": "raytracingthenextweekcuda_tpu/ops/pallas/intersect_kernel.py:443",
-         "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
-         "plain_ms": k3p_ms},
-        {"name": "K4 bvh_winner_kernel", "route": "cuda",
-         "source": "raytracingthenextweekcuda_tpu_torch/csrc/bvh_winner_kernel.cu",
-         "replaces": "raytracingthenextweekcuda_tpu/ops/pallas/bvh_winner_kernel.py:201",
-         "launches": k4_launches, "max_abs_err": k4_err, "ms": k4_ms,
-         "plain_ms": k4p_ms},
+        entry("K1 render_kernel", "render_kernel.cu", f"{ref}bounce_kernel.py:1466",
+              k1_launches, k1_err, k1_ms, k1_plain_ms, k1_bound),
+        entry("K1-BVH render_kernel<true>", "render_kernel.cu", walk, k1b_launches,
+              bvh_err["K1"], k1b_ms, k1b_plain_ms, k1b_bound),
+        entry("K2 path_kernel", "render_kernel.cu", f"{ref}bounce_kernel.py:1392",
+              k2_launches, k2_err, k2_ms, k2p_ms, k2_bound),
+        entry("K2-BVH path_kernel<true>", "render_kernel.cu", walk, k2b_launches,
+              bvh_err["K2"], k2b_ms, k2b_plain_ms, k2b_bound),
+        entry("K0 bounce_kernel", "render_kernel.cu", f"{ref}bounce_kernel.py:1303",
+              k0_launches, k0_err, k0_ms, k0p_ms, k0_bound),
+        entry("K0-BVH bounce_kernel<true>", "render_kernel.cu", walk, k0b_launches,
+              bvh_err["K0"], k0b_ms, k0b_plain_ms, k0b_bound),
+        entry("K3 closest_hit_kernel", "intersect_kernel.cu",
+              f"{ref}intersect_kernel.py:443", k3_launches, k3_err, k3_ms, k3p_ms,
+              k3_bound),
+        entry("K4 bvh_winner_kernel", "bvh_winner_kernel.cu",
+              f"{ref}bvh_winner_kernel.py:201", k4_launches, k4_err, k4_ms, k4p_ms,
+              k4_bound),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

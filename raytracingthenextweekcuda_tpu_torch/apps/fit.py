@@ -32,6 +32,7 @@ from raytracingthenextweekcuda_tpu_torch.models.scene import (
     with_leaves,
 )
 from raytracingthenextweekcuda_tpu_torch.ops import threefry
+from raytracingthenextweekcuda_tpu_torch.ops.cuda.bounce_kernel import device_or_raise
 
 TRUE_CENTERS = ((-0.45, 0.0, 0.0), (0.5, 0.05, -0.2))
 TRUE_ALBEDOS = ((0.8, 0.2, 0.2), (0.2, 0.3, 0.8))
@@ -108,10 +109,10 @@ def _write_side_by_side(out: str, target_rad, final_rad) -> None:
 
 def run_fit(steps: int = 60, out: str = "fit.png", width: int = 96,
             height: int = 96, spp: int = 8, lr: float = 2e-2, seed: int = 0,
-            device="cpu", verbose: bool = True, losses: list | None = None) -> int:
+            device="cuda", verbose: bool = True, losses: list | None = None) -> int:
     """Fit the two spheres' centres and albedos; 0 when the loss halves.
     `losses`, when given, receives each step's loss."""
-    device = torch.device(device)
+    device = device_or_raise(device)
     camera = fit_camera()
     cfg = fit_config(width, height, spp)
     key = threefry.key(seed)
@@ -205,13 +206,13 @@ def mesh_fit_loss(scale, anchor: Scene, anchor_scale, target: dict, camera,
 
 def run_fit_mesh(steps: int = 40, out: str = "fit_mesh.png", width: int = 96,
                  height: int = 96, spp: int = 8, lr: float = 1.5e-2,
-                 seed: int = 0, refresh: int = 8, device="cpu",
+                 seed: int = 0, refresh: int = 8, device="cuda",
                  verbose: bool = True, losses: list | None = None) -> int:
     """Fit an anisotropic vertex scale (v' = v * (1 + scale)) through the
     tile-BVH path; every `refresh` steps the scene is finalized again at
     the current scale, so the selection follows the geometry. 0 when the
     loss halves; `losses`, when given, receives each step's loss."""
-    device = torch.device(device)
+    device = device_or_raise(device)
     camera = fit_camera()
     cfg = fit_config(width, height, spp)
     key = threefry.key(seed)

@@ -17,6 +17,29 @@
 // quads and oriented boxes, in that order; the 8-kind BSDF; sky, additive
 // emission and emission termination; optional Russian roulette.
 //
+// On a tile-BVH pack the triangles are found by a walk of the tile-BVH
+// instead (after spheres and planes), in the instantiation with kBvh =
+// true; the other instantiation compiles the walk away, as the TPU kernel
+// does with n_bvh_nodes = 0. It replaces the TPU kernel's block-consensus
+// skip-pointer walk (_bounce_core, bounce_kernel.py:820-1044), which
+// visits a node when any ray of a 1024-ray block hits its box, tests a
+// leaf's tile for the rows whose rays hit it, and resolves the winners'
+// attributes in a second sweep: the consensus, the per-row `any` and the
+// sweep exist because a TPU block shares scalar control flow. Here each
+// thread walks the same DFS node order alone, without a stack: on a box
+// hit it descends to node + 1 (a leaf tests its `leaf_tile` Havel
+// columns, strict t < best, the lowest column among equal t), else it
+// jumps to the node's skip pointer. A child's box lies inside its
+// parent's and the slab arithmetic rounds monotonically in the bounds, so
+// a ray that misses a box misses all it holds: the thread meets the
+// leaves, the best t and the winner that the block walk gives this ray.
+// The winner's normal and material rows are read from its column.
+// What bounds it: FP32 work, about 40 operations per Havel column of
+// each leaf a ray enters and 20 per node box it tests; the Havel rows
+// (80 bytes a column) stay in global memory and are read through L1 and
+// L2, where the threads of a warp in the same leaf read the same column
+// at the same step (a broadcast); the node arrays are a few KB.
+//
 // A thread of K1 or K2 leaves its bounce loop as soon as its own path
 // dies. The TPU kernels run a 1024-ray block until every ray in it has
 // died; a dead
@@ -98,6 +121,11 @@ struct Scene {
   const float* sph; const float* pla; const float* tri; const float* quad;
   const float* box;
   int ns, np, nt, nq, nb;
+  // The tile-BVH of the mesh (kBvh): node boxes (6, n_nodes), node meta
+  // (5, n_nodes: is_leaf, tile start, skip, tile_lo, tile_hi) and the
+  // Havel rows (20, trih_cols) in leaf-tile order, leaf_tile per leaf.
+  const float* bvh_b; const int32_t* bvh_m; const float* trih;
+  int n_nodes, trih_cols, leaf_tile;
 };
 
 struct Hit {
@@ -132,6 +160,62 @@ __device__ __forceinline__ void havel(Hit& h, const float* rows, int n, int coun
   }
 }
 
+// The closest mesh hit through the tile-BVH, in front of h.t (see the
+// file comment).
+__device__ __forceinline__ void bvh_closest(Hit& h, const Scene& s, float ox,
+                                            float oy, float oz, float dx, float dy,
+                                            float dz, float tmin) {
+  const float eps_d = 1e-20f;
+  const float sdx = fabsf(dx) < eps_d ? (dx >= 0.0f ? eps_d : -eps_d) : dx;
+  const float sdy = fabsf(dy) < eps_d ? (dy >= 0.0f ? eps_d : -eps_d) : dy;
+  const float sdz = fabsf(dz) < eps_d ? (dz >= 0.0f ? eps_d : -eps_d) : dz;
+  const float ix = 1.0f / sdx, iy = 1.0f / sdy, iz = 1.0f / sdz;
+  const int nn = s.n_nodes, n = s.trih_cols;
+  float best = h.t;
+  int win = -1;
+  int node = 0;
+  while (node < nn) {
+    const float* B = s.bvh_b + node;
+    float t0 = (__ldg(B) - ox) * ix, t1 = (__ldg(B + 3 * nn) - ox) * ix;
+    float tn = fminf(t0, t1), tf = fmaxf(t0, t1);
+    t0 = (__ldg(B + nn) - oy) * iy; t1 = (__ldg(B + 4 * nn) - oy) * iy;
+    tn = fmaxf(tn, fminf(t0, t1)); tf = fminf(tf, fmaxf(t0, t1));
+    t0 = (__ldg(B + 2 * nn) - oz) * iz; t1 = (__ldg(B + 5 * nn) - oz) * iz;
+    tn = fmaxf(tn, fminf(t0, t1)); tf = fminf(tf, fmaxf(t0, t1));
+    const bool hit = tf >= tn && tf >= tmin && tn < best;
+    const int32_t* M = s.bvh_m + node;
+    if (hit && __ldg(M) != 1) { ++node; continue; }
+    if (hit) {
+      const int first = __ldg(M + nn);
+      for (int c = first; c < first + s.leaf_tile; ++c) {
+        const float* H = s.trih + c;
+        const float nx = __ldg(H), ny = __ldg(H + n), nz = __ldg(H + 2 * n);
+        const float dn = dx * nx + dy * ny + dz * nz;
+        const bool ok = dn < -kFltEps;  // backface culling
+        const float inv = 1.0f / (ok ? dn : 1.0f);
+        const float t = (__ldg(H + 3 * n) - (ox * nx + oy * ny + oz * nz)) * inv;
+        const float hx = ox + t * dx, hy = oy + t * dy, hz = oz + t * dz;
+        const float u = __ldg(H + 4 * n) * hx + __ldg(H + 5 * n) * hy +
+                        __ldg(H + 6 * n) * hz + __ldg(H + 7 * n);
+        const float v = __ldg(H + 8 * n) * hx + __ldg(H + 9 * n) * hy +
+                        __ldg(H + 10 * n) * hz + __ldg(H + 11 * n);
+        if (ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tmin && t < best) {
+          best = t;
+          win = c;
+        }
+      }
+    }
+    node = __ldg(M + 2 * nn);
+  }
+  if (win >= 0) {
+    const float* H = s.trih + win;
+    h.t = best;
+    h.nx = H[0]; h.ny = H[n]; h.nz = H[2 * n];
+    take_mat(h, H + kHavMat * n, n);
+  }
+}
+
+template <bool kBvh>
 __device__ Hit closest_hit(const Scene& s, float ox, float oy, float oz,
                            float dx, float dy, float dz, float tm, float tmin) {
   Hit h;
@@ -189,6 +273,10 @@ __device__ Hit closest_hit(const Scene& s, float ox, float oy, float oz,
     }
   }
 
+  if constexpr (kBvh) {
+    bvh_closest(h, s, ox, oy, oz, dx, dy, dz, tmin);
+    return h;
+  }
   havel(h, s.tri, s.nt, s.nt, false, ox, oy, oz, dx, dy, dz, tmin);
   havel(h, s.quad, s.nq, s.nq, true, ox, oy, oz, dx, dy, dz, tmin);
 
@@ -271,12 +359,13 @@ __device__ __forceinline__ Flags decode_flags(int flags) {
 // Russian roulette. Returns whether the path goes on. A path that ends
 // keeps its ray; its throughput is the incoming one, times the
 // attenuation when Russian roulette ended it (as the plain version's).
+template <bool kBvh>
 __device__ __forceinline__ bool bounce(const Scene& s, Path& p, float tm,
                                        float v0, float v1, float v2, float v3,
                                        bool do_rr, const Flags& fl, float tmin) {
   const float ox = p.ox, oy = p.oy, oz = p.oz;
   const float dx = p.dx, dy = p.dy, dz = p.dz;
-  Hit h = closest_hit(s, ox, oy, oz, dx, dy, dz, tm, tmin);
+  Hit h = closest_hit<kBvh>(s, ox, oy, oz, dx, dy, dz, tm, tmin);
   const bool valid = h.kind >= 0.0f;
   const int kind = (int)h.kind;
 
@@ -442,11 +531,18 @@ __device__ __forceinline__ bool bounce(const Scene& s, Path& p, float tm,
   return true;
 }
 
+// The tile-BVH arguments every entry takes (null and zeros without one).
+struct MeshArgs {
+  const float* bvh_b; const int32_t* bvh_m; const float* trih;
+  int n_nodes, trih_cols, leaf_tile;
+};
+
 // The packed scene rows, copied into shared memory when they fit (see the
 // file comment); every thread of the block must call this.
 __device__ __forceinline__ Scene load_scene(const float* scene_g, float* smem,
                                             int ns, int np, int nt, int nq,
-                                            int nb, int n_floats, int use_smem) {
+                                            int nb, int n_floats, int use_smem,
+                                            const MeshArgs& mesh) {
   const float* base = scene_g;
   if (use_smem) {
     for (int k = threadIdx.x; k < n_floats; k += blockDim.x) smem[k] = scene_g[k];
@@ -460,6 +556,9 @@ __device__ __forceinline__ Scene load_scene(const float* scene_g, float* smem,
   s.tri = s.pla + kPlaRows * np;
   s.quad = s.tri + kHavRows * nt;
   s.box = s.quad + kHavRows * nq;
+  s.bvh_b = mesh.bvh_b; s.bvh_m = mesh.bvh_m; s.trih = mesh.trih;
+  s.n_nodes = mesh.n_nodes; s.trih_cols = mesh.trih_cols;
+  s.leaf_tile = mesh.leaf_tile;
   return s;
 }
 
@@ -474,15 +573,18 @@ __device__ __forceinline__ void bounce_uniforms(uint32_t p, uint32_t b0,
 }
 
 // K1: raygen plus every sample and bounce of one pixel per thread.
+template <bool kBvh>
 __global__ void __launch_bounds__(kThreads)
 render_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
-              int nb, int n_floats, int use_smem, const float* __restrict__ frame,
+              int nb, int n_floats, int use_smem, MeshArgs mesh,
+              const float* __restrict__ frame,
               const uint32_t* __restrict__ words, int n_samples,
               const int32_t* __restrict__ pid_g, int n, int width, int height,
               int bounces, int rr_start, float tmin, int flags,
               float* __restrict__ out) {
   extern __shared__ float smem[];
-  const Scene s = load_scene(scene_g, smem, ns, np, nt, nq, nb, n_floats, use_smem);
+  const Scene s = load_scene(scene_g, smem, ns, np, nt, nq, nb, n_floats, use_smem,
+                             mesh);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Flags fl = decode_flags(flags);
@@ -530,7 +632,8 @@ render_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
     for (int b = 0; b < bounces; ++b) {
       float v0, v1, v2, v3;
       bounce_uniforms(p, b0, b1, b, v0, v1, v2, v3);
-      if (!bounce(s, path, tm, v0, v1, v2, v3, fl.rr && b >= rr_start, fl, tmin))
+      if (!bounce<kBvh>(s, path, tm, v0, v1, v2, v3, fl.rr && b >= rr_start, fl,
+                        tmin))
         break;
     }
     arx = arx + path.rx; ary = ary + path.ry; arz = arz + path.rz;
@@ -542,15 +645,18 @@ render_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
 
 // K2: the whole bounce loop of one supplied ray per thread, with the
 // per-thread exit; one sample's key words (b0, b1) for the wavefront.
+template <bool kBvh>
 __global__ void __launch_bounds__(kThreads)
 path_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
-            int nb, int n_floats, int use_smem, const float* __restrict__ origin,
+            int nb, int n_floats, int use_smem, MeshArgs mesh,
+            const float* __restrict__ origin,
             const float* __restrict__ direction, const float* __restrict__ time,
             const int32_t* __restrict__ pid_g, uint32_t b0, uint32_t b1, int n,
             int bounces, int rr_start, float tmin, int flags,
             float* __restrict__ out) {
   extern __shared__ float smem[];
-  const Scene s = load_scene(scene_g, smem, ns, np, nt, nq, nb, n_floats, use_smem);
+  const Scene s = load_scene(scene_g, smem, ns, np, nt, nq, nb, n_floats, use_smem,
+                             mesh);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Flags fl = decode_flags(flags);
@@ -565,7 +671,7 @@ path_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
   for (int b = 0; b < bounces; ++b) {
     float v0, v1, v2, v3;
     bounce_uniforms(p, b0, b1, b, v0, v1, v2, v3);
-    if (!bounce(s, path, tm, v0, v1, v2, v3, fl.rr && b >= rr_start, fl, tmin))
+    if (!bounce<kBvh>(s, path, tm, v0, v1, v2, v3, fl.rr && b >= rr_start, fl, tmin))
       break;
   }
   out[3 * i + 0] = path.rx;
@@ -577,14 +683,17 @@ path_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
 // dx dy dz tm tpx tpy tpz rx ry rz, `u4` (n, 4); `out` is (12, n), the
 // carry without tm, and `alive_out` the continue flag. Dead rays pass
 // through with alive 0.
+template <bool kBvh>
 __global__ void __launch_bounds__(kThreads)
 bounce_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
-              int nb, int n_floats, int use_smem, const float* __restrict__ state,
+              int nb, int n_floats, int use_smem, MeshArgs mesh,
+              const float* __restrict__ state,
               const int32_t* __restrict__ alive, const float* __restrict__ u4,
               int n, int do_rr, float tmin, int flags, float* __restrict__ out,
               int32_t* __restrict__ alive_out) {
   extern __shared__ float smem[];
-  const Scene s = load_scene(scene_g, smem, ns, np, nt, nq, nb, n_floats, use_smem);
+  const Scene s = load_scene(scene_g, smem, ns, np, nt, nq, nb, n_floats, use_smem,
+                             mesh);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Flags fl = decode_flags(flags);
@@ -596,8 +705,8 @@ bounce_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
   path.rx = state[10 * n + i]; path.ry = state[11 * n + i]; path.rz = state[12 * n + i];
   bool cont = false;
   if (alive[i] != 0)
-    cont = bounce(s, path, tm, u4[4 * i], u4[4 * i + 1], u4[4 * i + 2],
-                  u4[4 * i + 3], fl.rr && do_rr != 0, fl, tmin);
+    cont = bounce<kBvh>(s, path, tm, u4[4 * i], u4[4 * i + 1], u4[4 * i + 2],
+                        u4[4 * i + 3], fl.rr && do_rr != 0, fl, tmin);
   out[i] = path.ox; out[n + i] = path.oy; out[2 * n + i] = path.oz;
   out[3 * n + i] = path.dx; out[4 * n + i] = path.dy; out[5 * n + i] = path.dz;
   out[6 * n + i] = path.tpx; out[7 * n + i] = path.tpy; out[8 * n + i] = path.tpz;
@@ -620,50 +729,63 @@ size_t smem_bytes(int n_floats) {
 
 extern "C" int rtnw_render_samples(const float* scene, int n_sph, int n_pla,
                                    int n_trih, int n_quad, int n_box,
-                                   const float* frame, const uint32_t* words,
-                                   int n_samples, const int32_t* pid, int n,
-                                   int width, int height, int bounces,
-                                   int rr_start, float tmin, int flags,
-                                   float* out, void* stream) {
+                                   const float* bvh_b, const int32_t* bvh_m,
+                                   const float* trih, int n_nodes, int trih_cols,
+                                   int leaf_tile, const float* frame,
+                                   const uint32_t* words, int n_samples,
+                                   const int32_t* pid, int n, int width,
+                                   int height, int bounces, int rr_start,
+                                   float tmin, int flags, float* out,
+                                   void* stream) {
   const int n_floats = scene_floats(n_sph, n_pla, n_trih, n_quad, n_box);
   const size_t bytes = smem_bytes(n_floats);
   const int blocks = (n + kThreads - 1) / kThreads;
-  render_kernel<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
+  const MeshArgs mesh{bvh_b, bvh_m, trih, n_nodes, trih_cols, leaf_tile};
+  auto kernel = n_nodes > 0 ? render_kernel<true> : render_kernel<false>;
+  kernel<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
       scene, n_sph, n_pla, n_trih, n_quad, n_box, n_floats, bytes > 0 ? 1 : 0,
-      frame, words, n_samples, pid, n, width, height, bounces, rr_start, tmin,
-      flags, out);
+      mesh, frame, words, n_samples, pid, n, width, height, bounces, rr_start,
+      tmin, flags, out);
   return (int)cudaGetLastError();
 }
 
 extern "C" int rtnw_path_trace(const float* scene, int n_sph, int n_pla,
                                int n_trih, int n_quad, int n_box,
-                               const float* origin, const float* direction,
-                               const float* time, const int32_t* pid,
-                               uint32_t b0, uint32_t b1, int n, int bounces,
-                               int rr_start, float tmin, int flags, float* out,
-                               void* stream) {
+                               const float* bvh_b, const int32_t* bvh_m,
+                               const float* trih, int n_nodes, int trih_cols,
+                               int leaf_tile, const float* origin,
+                               const float* direction, const float* time,
+                               const int32_t* pid, uint32_t b0, uint32_t b1,
+                               int n, int bounces, int rr_start, float tmin,
+                               int flags, float* out, void* stream) {
   const int n_floats = scene_floats(n_sph, n_pla, n_trih, n_quad, n_box);
   const size_t bytes = smem_bytes(n_floats);
   const int blocks = (n + kThreads - 1) / kThreads;
-  path_kernel<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
+  const MeshArgs mesh{bvh_b, bvh_m, trih, n_nodes, trih_cols, leaf_tile};
+  auto kernel = n_nodes > 0 ? path_kernel<true> : path_kernel<false>;
+  kernel<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
       scene, n_sph, n_pla, n_trih, n_quad, n_box, n_floats, bytes > 0 ? 1 : 0,
-      origin, direction, time, pid, b0, b1, n, bounces, rr_start, tmin, flags,
-      out);
+      mesh, origin, direction, time, pid, b0, b1, n, bounces, rr_start, tmin,
+      flags, out);
   return (int)cudaGetLastError();
 }
 
 extern "C" int rtnw_bounce_step(const float* scene, int n_sph, int n_pla,
                                 int n_trih, int n_quad, int n_box,
-                                const float* state, const int32_t* alive,
-                                const float* u4, int n, int do_rr, float tmin,
-                                int flags, float* out, int32_t* alive_out,
-                                void* stream) {
+                                const float* bvh_b, const int32_t* bvh_m,
+                                const float* trih, int n_nodes, int trih_cols,
+                                int leaf_tile, const float* state,
+                                const int32_t* alive, const float* u4, int n,
+                                int do_rr, float tmin, int flags, float* out,
+                                int32_t* alive_out, void* stream) {
   const int n_floats = scene_floats(n_sph, n_pla, n_trih, n_quad, n_box);
   const size_t bytes = smem_bytes(n_floats);
   const int blocks = (n + kThreads - 1) / kThreads;
-  bounce_kernel<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
+  const MeshArgs mesh{bvh_b, bvh_m, trih, n_nodes, trih_cols, leaf_tile};
+  auto kernel = n_nodes > 0 ? bounce_kernel<true> : bounce_kernel<false>;
+  kernel<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
       scene, n_sph, n_pla, n_trih, n_quad, n_box, n_floats, bytes > 0 ? 1 : 0,
-      state, alive, u4, n, do_rr, tmin, flags, out, alive_out);
+      mesh, state, alive, u4, n, do_rr, tmin, flags, out, alive_out);
   return (int)cudaGetLastError();
 }
 

@@ -18,6 +18,14 @@ raytracingthenextweekcuda_tpu/models/integrator.py).
   the plain torch intersects (ops/intersect.py) for unfinalized ones, with
   a whole-wavefront early-out once every ray has died. Gradients flow
   through the recompute and the BSDF into the scene's tensor leaves.
+  A scene with an LBVH (`scene.bvh`, ops/bvh.py) takes this engine too:
+  the LBVH walk (ops/traverse.py) finds its triangles' hits, beside K3
+  or the plain intersects, and the vertex gradients flow through it.
+
+Tile-BVH scenes without an LBVH take the sorted wavefront before the
+bounce kernels, as in the reference; with `_sorted_eligible` made false
+(the reference's cross-engine check) they take K1 and K2, whose tile-BVH
+walk then finds the mesh hits.
 
 `render_pass` renders a pass in one launch of the render kernel K1 where
 `trace` would take K2, through one multi-sample sorted wavefront (all of
@@ -36,6 +44,7 @@ pass, `split(pass_key, samples)` per sample, as host threefry words
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,8 +53,17 @@ from raytracingthenextweekcuda_tpu_torch.config import INFINITY, RenderConfig
 from raytracingthenextweekcuda_tpu_torch.models import camera as camera_mod
 from raytracingthenextweekcuda_tpu_torch.models.film import Film
 from raytracingthenextweekcuda_tpu_torch.models.scene import Scene
-from raytracingthenextweekcuda_tpu_torch.ops import intersect, linalg, rng, threefry
+from raytracingthenextweekcuda_tpu_torch.ops import (
+    geometry as geom,
+    intersect,
+    linalg,
+    rng,
+    threefry,
+    traverse,
+)
+from raytracingthenextweekcuda_tpu_torch.ops.bvh import BVH
 from raytracingthenextweekcuda_tpu_torch.ops.cuda.bounce_kernel import (
+    device_or_raise,
     grad_probe,
     path_trace,
     render_samples,
@@ -55,6 +73,8 @@ from raytracingthenextweekcuda_tpu_torch.ops.fused import (
     device_scene,
     intersect_scene_fused,
 )
+from raytracingthenextweekcuda_tpu_torch.ops.geometry import Triangles
+from raytracingthenextweekcuda_tpu_torch.ops.intersect import leaf
 from raytracingthenextweekcuda_tpu_torch.ops.materials import (
     MaterialRows,
     gather,
@@ -76,32 +96,20 @@ _SORT_WAVEFRONT_CAP = 4 * 1024 * 1024
 _SORT_SAMPLE_GROUP_CAP = 64
 
 
-def check_eligible(scene: Scene) -> None:
-    """Raise for what the port cannot render yet."""
-    if scene.bvh is not None:
-        raise NotImplementedError(
-            "scene.bvh (the LBVH of ops/bvh.py and ops/traverse.py) is not "
-            "ported: ROADMAP queue 1; finalize the scene instead (tile-BVH "
-            "above 256 triangles)")
-
-
 def _sorted_eligible(scene: Scene) -> bool:
-    """Tile-BVH scenes trace through the sorted wavefront."""
-    return scene.packed is not None and scene.packed.leaf_bounds is not None
+    """Tile-BVH scenes without an LBVH trace through the sorted wavefront
+    (reference integrator.py:168-192). It takes precedence over the bounce
+    kernels, whose tile-BVH walk serves as the other engine of the
+    cross-engine check (force it by making this test false)."""
+    return (scene.packed is not None and getattr(scene.packed, "shaded", False)
+            and scene.packed.leaf_bounds is not None and scene.bvh is None)
 
 
 def _fused_eligible(scene: Scene, cfg: RenderConfig) -> bool:
-    """The bounce kernels cover the whole scene."""
+    """The bounce kernels cover the whole scene (reference
+    integrator.py:158-165): a shaded pack and no LBVH."""
     return (cfg.fused_bounce and scene.packed is not None
-            and getattr(scene.packed, "shaded", False) and scene.bvh is None
-            and scene.packed.leaf_bounds is None)
-
-
-def _device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("render on cuda requested but CUDA is not available")
-    return device
+            and getattr(scene.packed, "shaded", False) and scene.bvh is None)
 
 
 def sky_color(direction: torch.Tensor) -> torch.Tensor:
@@ -129,23 +137,47 @@ def intersect_scene(scene: Scene, rays: Rays, tmin, tmax=INFINITY,
     """Closest hit over the whole scene, in three regimes: a finalized
     scene goes to K3 (and K4 on a tile-BVH) with the torch recompute
     (ops/fused.py); an unfinalized one to the plain torch intersects
-    (ops/intersect.py), which honour `tmax`; a scene with an LBVH raises."""
-    check_eligible(scene)
+    (ops/intersect.py), which honour `tmax`. A scene with an LBVH
+    (`scene.bvh`) adds the LBVH walk over `scene.triangles`
+    (ops/traverse.py) to either, the reference's two-level dispatch."""
     return _closest_hit(_scene_on(scene, rays.origin.device)[0], rays, tmin,
                         tmax, alive)
 
 
+class LbvhTarget(NamedTuple):
+    """What the wavefront reads of a scene with an LBVH on one device: the
+    target of its other primitives (a DeviceScene, or the unfinalized
+    scene without its triangles), and the triangles and LBVH that
+    `traverse.intersect_bvh` walks."""
+
+    base: object
+    triangles: Triangles
+    bvh: BVH
+
+
 def _scene_on(scene: Scene, device):
     """What the torch wavefront reads on `device`: the DeviceScene of a
-    finalized scene, or the unfinalized scene itself; and the material
-    table."""
+    finalized scene, or the unfinalized scene itself, inside an
+    LbvhTarget when the scene has an LBVH; and the material table."""
     target = device_scene(scene, device) if scene.packed is not None else scene
+    if scene.bvh is not None and scene.triangles.count:
+        tri = scene.triangles
+        if scene.packed is None:  # the LBVH walk takes the triangles' place
+            target = dataclasses.replace(scene, triangles=geom.empty_triangles())
+        target = LbvhTarget(target, Triangles(
+            leaf(tri.vertices, device).reshape(-1, 3, 3),
+            leaf(tri.material_id, device, torch.int64), tri.mesh_id),
+            scene.bvh.to(device))
     return target, material_table(scene.materials, device)
 
 
 def _closest_hit(target, rays: Rays, tmin, tmax=INFINITY, alive=None) -> Hit:
     """`intersect_scene` on a target of `_scene_on`. The unfinalized
     regime tests every ray; the bookkeeping masks the dead ones."""
+    if isinstance(target, LbvhTarget):
+        return closer(_closest_hit(target.base, rays, tmin, tmax, alive),
+                      traverse.intersect_bvh(rays, target.triangles, target.bvh,
+                                             tmin, tmax, alive=alive))
     if isinstance(target, DeviceScene):
         return intersect_scene_fused(target, rays, tmin, alive=alive)
     hit = Hit.none(rays.count, rays.origin.device)
@@ -288,7 +320,6 @@ def trace(scene: Scene, rays: Rays, ctx: rng.RayCtx, cfg: RenderConfig) -> torch
     """Path-trace a wavefront to the end: radiance (N, 3), on the rays'
     device. `ctx` is the rays' RayCtx (models/camera.generate_rays); every
     random draw is a function of (pixel, key words, bounce)."""
-    check_eligible(scene)
     target, mats = _scene_on(scene, rays.origin.device)
     return _trace(scene, target, mats, rays, ctx, cfg)
 
@@ -318,11 +349,10 @@ def _render_pass_sorted(scene: Scene, frame, sample_words,
 
 
 def render_pass(scene: Scene, camera: camera_mod.Camera, key: np.ndarray,
-                cfg: RenderConfig, samples: int, device="cpu") -> torch.Tensor:
+                cfg: RenderConfig, samples: int, device="cuda") -> torch.Tensor:
     """Trace `samples` spp and return the summed radiance (H, W, 3) on
     `device`."""
-    check_eligible(scene)
-    device = _device(device)
+    device = device_or_raise(device)
     frame = camera_mod.derive(camera, cfg.aspect_ratio)
     sample_words = threefry.split(key, samples)
     if _sorted_eligible(scene):
@@ -342,7 +372,7 @@ def render_pass(scene: Scene, camera: camera_mod.Camera, key: np.ndarray,
 
 
 def render_gbuffer(scene: Scene, camera: camera_mod.Camera, key: np.ndarray,
-                   cfg: RenderConfig, samples: int, device="cpu") -> dict:
+                   cfg: RenderConfig, samples: int, device="cuda") -> dict:
     """Radiance and the primary hit's AOVs, on `device`.
 
     Returns a dict: "radiance" (H, W, 3) summed over the samples, and the
@@ -353,8 +383,7 @@ def render_gbuffer(scene: Scene, camera: camera_mod.Camera, key: np.ndarray,
     scene, every output is differentiable with respect to the scene's
     tensor leaves.
     """
-    check_eligible(scene)
-    device = _device(device)
+    device = device_or_raise(device)
     frame = camera_mod.derive(camera, cfg.aspect_ratio)
     target, mats = _scene_on(scene, device)
     n = cfg.num_pixels
@@ -384,10 +413,9 @@ def render_gbuffer(scene: Scene, camera: camera_mod.Camera, key: np.ndarray,
 
 
 def render(scene: Scene, camera: camera_mod.Camera, cfg: RenderConfig,
-           key: np.ndarray | None = None, device="cpu") -> Film:
+           key: np.ndarray | None = None, device="cuda") -> Film:
     """Full offline render: accumulate cfg.spp over passes into a Film."""
-    check_eligible(scene)
-    device = _device(device)
+    device = device_or_raise(device)
     if key is None:
         key = threefry.key(cfg.seed)
     film = Film.create(cfg.width, cfg.height, device=device)

@@ -42,8 +42,9 @@ class Scene:
     mesh_info: MeshInfo
     # PackedScene of the render kernel (ops/cuda/bounce_kernel.py).
     packed: Optional[object] = None
-    # The reference's LBVH (its ops/bvh.py), which the port does not
-    # traverse yet: a scene that carries one is refused by the integrator.
+    # An LBVH over `triangles` (ops/bvh.BVH, from ops/bvh.build_bvh or
+    # native.build_sah_bvh), set by the caller: the integrator then finds
+    # the triangles' hits by its walk (ops/traverse.py).
     bvh: Optional[object] = None
 
 

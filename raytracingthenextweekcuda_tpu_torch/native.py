@@ -1,6 +1,10 @@
 """ctypes binding of the native binned-SAH BVH builder (counterpart of the
 SAH part of raytracingthenextweekcuda_tpu/native.py).
 
+Its tree has the LBVH's layout (ops/bvh.py), so `SAHTree.to_bvh` hands it
+to the LBVH walk (ops/traverse.py), and the tile-BVH derives its leaves
+from it (ops/bvh_tile.py).
+
 The shared library is the repository's `native/build/lib/librtnw_native.so`
 (built from native/bvh_builder.cpp with
 `cmake -S native -B native/build -G Ninja && ninja -C native/build`).
@@ -33,6 +37,15 @@ class SAHTree(NamedTuple):
     tri_order: np.ndarray    # (T,) i32
     range_first: np.ndarray  # (T-1,) i32
     range_last: np.ndarray   # (T-1,) i32
+
+    def to_bvh(self, device="cpu"):
+        """The tree as an ops/bvh.BVH on `device`, for ops/traverse.py."""
+        import torch
+
+        from raytracingthenextweekcuda_tpu_torch.ops.bvh import BVH
+
+        return BVH(*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in self))
 
 
 def _load() -> ctypes.CDLL | None:

@@ -7,7 +7,10 @@ The three kernels (csrc/render_kernel.cu) share one bounce body:
   and each sample it generates the thin-lens primary ray from pcg4d and
   traces it through up to `bounces` bounces over the packed spheres,
   planes, Havel triangles and quads, and oriented boxes, summing the
-  radiance.
+  radiance. On a tile-BVH pack the triangles are found by a walk of the
+  tile-BVH instead (the reference's consensus branch, bounce_kernel.py:
+  820-1044): the kernels walk it per ray, the plain version as one
+  consensus block over the wavefront; both find the same winner.
 - K2, `path_trace`, traces a supplied wavefront of one sample to the end.
 - K0, `bounce_step`, advances the planar carry of `planar_state` by one
   bounce on pre-drawn uniforms.
@@ -49,6 +52,11 @@ from raytracingthenextweekcuda_tpu_torch.ops.cuda.intersect_kernel import (
     _pad128,
     pack_scene_host,
 )
+from raytracingthenextweekcuda_tpu_torch.ops.cuda.work import (
+    WORK,
+    count_leaves,
+    tile_triangles,
+)
 from raytracingthenextweekcuda_tpu_torch.ops.geometry import (
     COAT,
     DIELECTRIC,
@@ -80,13 +88,19 @@ TYPE_ROWS = {"sph": SPH_ROWS + MAT_ROWS, "pla": PLA_ROWS + MAT_ROWS,
              "box": BOX_ROWS + MAT_ROWS}
 
 # Launches of K1, K2 and K0, each counted by its wrapper where it launches
-# the kernel.
+# the kernel; the *_BVH_LAUNCHES count the launches of the tile-BVH
+# instantiations among them.
 KERNEL_LAUNCHES = 0
 PATH_LAUNCHES = 0
 BOUNCE_LAUNCHES = 0
+KERNEL_BVH_LAUNCHES = 0
+PATH_BVH_LAUNCHES = 0
+BOUNCE_BVH_LAUNCHES = 0
 
 # Primitive columns the plain version tests per vectorized step.
 _PRIM_CHUNK = 256
+# Rays per step of the plain version's leaf tests (bounds its memory).
+_RAY_CHUNK = 1 << 15
 
 
 # --------------------------------------------------------------------------
@@ -391,14 +405,18 @@ def pack_scene_shaded(scene, tile_bvh=None) -> PackedScene:
 # Kernel inputs
 # --------------------------------------------------------------------------
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, kw_only=True)
 class SceneInputs:
     """The packed scene and the bounce settings, as K1, K2 and K0 read them.
 
     `scene` is one flat float32 buffer of the packed rows at their TRUE
     counts, type after type (spheres 18 rows, planes 21, Havel triangles
     20, Havel quads 20, boxes 23), each (rows, count) row-major; `rows`
-    holds (rows, count) views of it per type for the plain versions.
+    holds (rows, count) views of it per type for the plain versions. On a
+    tile-BVH pack the buffer holds the spheres and planes only, and the
+    mesh is `trih`, its Havel rows in leaf-tile order, walked through
+    `bvh_bounds` and `bvh_meta` (is_leaf, tile start, skip, tile_lo,
+    tile_hi per node); a leaf covers `leaf_tile` columns.
     """
 
     scene: torch.Tensor        # (F,) float32
@@ -410,6 +428,10 @@ class SceneInputs:
     russian_roulette: bool
     additive_emission: bool
     used_kinds: tuple
+    bvh_bounds: torch.Tensor | None = None   # (6, M) float32
+    bvh_meta: torch.Tensor | None = None     # (5, M) int32
+    trih: torch.Tensor | None = None         # (20, C) float32
+    leaf_tile: int = 0
 
     @property
     def rows(self) -> dict:
@@ -417,6 +439,8 @@ class SceneInputs:
         for (name, nrow), cnt in zip(TYPE_ROWS.items(), self.counts):
             out[name] = self.scene[off: off + nrow * cnt].view(nrow, cnt)
             off += nrow * cnt
+        if self.trih is not None:
+            out["mesh"] = self.trih
         return out
 
     @property
@@ -466,16 +490,38 @@ class BounceInputs(SceneInputs):
     do_rr: bool
 
 
-def scene_inputs(packed: PackedScene, cfg, device="cpu") -> SceneInputs:
+def _tile_bvh_inputs(packed: PackedScene, device) -> dict:
+    """The tile-BVH fields of SceneInputs, on `device`; the leaf width is
+    the reference's `trih.shape[1] // leaf_tiles.shape[1]`."""
+    def on(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+    return dict(bvh_bounds=on(packed.bvh_bounds, np.float32),
+                bvh_meta=on(packed.bvh_meta, np.int32),
+                trih=on(packed.trih, np.float32),
+                leaf_tile=int(packed.trih.shape[1] // packed.leaf_tiles.shape[1]))
+
+
+def device_or_raise(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device without CUDA raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{device} requested but CUDA is not available")
+    return device
+
+
+def scene_inputs(packed: PackedScene, cfg, device="cuda") -> SceneInputs:
     """The packed scene's rows and `cfg`'s bounce settings on `device`."""
+    device = device_or_raise(device)
     if not packed.shaded:
         raise ValueError("the bounce kernels need a shaded pack (models.scene.finalize)")
     S, P, T = packed.counts
     nt, nq, nb = packed.hcounts
-    if T and not (nt or nq or nb):
+    tile_bvh = packed.leaf_bounds is not None
+    if T and not tile_bvh and not (nt or nq or nb):
         raise ValueError("triangles must be Havel-packed (pack_scene_shaded)")
     blocks = [packed.spheres[:, :S], packed.planes[:, :P]]
-    if packed.trih is not None:
+    if packed.trih is not None and not tile_bvh:
         blocks += [packed.trih[:, :nt], packed.quadh[:, :nq], packed.boxh[:, :nb]]
     else:
         nt = nq = nb = 0
@@ -490,11 +536,12 @@ def scene_inputs(packed: PackedScene, cfg, device="cpu") -> SceneInputs:
         russian_roulette=bool(cfg.russian_roulette),
         additive_emission=bool(packed.has_emission),
         used_kinds=tuple(int(k) for k in used),
+        **(_tile_bvh_inputs(packed, device) if tile_bvh else {}),
     )
 
 
 def render_inputs(packed: PackedScene, frame, sample_words, cfg,
-                  pixel_ids=None, device="cpu") -> RenderInputs:
+                  pixel_ids=None, device="cuda") -> RenderInputs:
     """Build K1's inputs on `device` from host data."""
     sc = scene_inputs(packed, cfg, device)
     words = np.asarray(sample_words, np.uint32).reshape(-1, 2)
@@ -511,19 +558,10 @@ def render_inputs(packed: PackedScene, frame, sample_words, cfg,
     )
 
 
-def _no_tile_bvh(packed: PackedScene, entry: str) -> None:
-    if packed.leaf_bounds is not None:
-        raise ValueError(
-            f"{entry}: tile-BVH packs need the consensus-BVH branch of the "
-            "bounce kernels, which is not ported (ROADMAP queue 2); render "
-            "such scenes through models.integrator (the sorted wavefront)")
-
-
 def path_inputs(packed: PackedScene, rays: Rays, ctx, cfg) -> PathInputs:
     """K2's inputs on the rays' device. `ctx` is the wavefront's RayCtx
     (models.camera.generate_rays), whose key words must be scalars: one
     sample per wavefront."""
-    _no_tile_bvh(packed, "path_trace")
     if any(torch.is_tensor(w) and w.dim() for w in (ctx.base0, ctx.base1)):
         raise ValueError(
             "path_trace needs scalar RayCtx key words (one sample per "
@@ -544,7 +582,6 @@ def path_inputs(packed: PackedScene, rays: Rays, ctx, cfg) -> PathInputs:
 def bounce_inputs(packed: PackedScene, state, u4, do_rr, cfg) -> BounceInputs:
     """K0's inputs on the state's device; `state` is the 14-tuple of
     `planar_state`."""
-    _no_tile_bvh(packed, "bounce_step")
     dev = state[0].device
     sc = scene_inputs(packed, cfg, dev)
     floats = [state[k] for k in range(14) if k != 7]
@@ -606,7 +643,7 @@ def guard(out: torch.Tensor, *inputs) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def render_samples(packed: PackedScene, frame, sample_words, cfg,
-                   pixel_ids=None, device="cpu") -> torch.Tensor:
+                   pixel_ids=None, device="cuda") -> torch.Tensor:
     """Render `len(sample_words)` spp of the given pixels in one pass.
 
     `frame` is a camera.CameraFrame, `sample_words` the (S, 2) uint32 key
@@ -713,9 +750,32 @@ def _check(kernel: str, dev, specs) -> None:
                              f"on {dev}")
 
 
-def _scene_spec(inp: SceneInputs):
+def _scene_specs(inp: SceneInputs) -> tuple:
+    """The (tensor, dtype, shape) checks of the scene inputs: the flat rows
+    and, on a tile-BVH pack, the node and leaf-tile arrays."""
     n_floats = sum(r * c for r, c in zip(TYPE_ROWS.values(), inp.counts))
-    return (inp.scene, torch.float32, (n_floats,))
+    specs = ((inp.scene, torch.float32, (n_floats,)),)
+    if inp.trih is not None:
+        m = inp.bvh_bounds.shape[1]
+        cols = inp.trih.shape[1]
+        if inp.leaf_tile <= 0 or cols % inp.leaf_tile:
+            raise ValueError(f"leaf tile {inp.leaf_tile} does not divide the "
+                             f"{cols} Havel columns")
+        specs += ((inp.bvh_bounds, torch.float32, (6, m)),
+                  (inp.bvh_meta, torch.int32, (5, m)),
+                  (inp.trih, torch.float32, (HAVEL_ROWS + MAT_ROWS, cols)))
+    return specs
+
+
+def _mesh_args(inp: SceneInputs) -> tuple:
+    """The tile-BVH arguments of the C entries: node bounds, node meta,
+    Havel rows, node count, Havel column count and leaf width (null
+    pointers and zeros without a tile-BVH)."""
+    if inp.trih is None:
+        return (None, None, None, 0, 0, 0)
+    return (inp.bvh_bounds.data_ptr(), inp.bvh_meta.data_ptr(),
+            inp.trih.data_ptr(), int(inp.bvh_bounds.shape[1]),
+            int(inp.trih.shape[1]), int(inp.leaf_tile))
 
 
 def _raise_on(kernel: str, lib, err: int) -> None:
@@ -725,11 +785,11 @@ def _raise_on(kernel: str, lib, err: int) -> None:
 
 
 def _launch(inp: RenderInputs) -> torch.Tensor:
-    global KERNEL_LAUNCHES
+    global KERNEL_LAUNCHES, KERNEL_BVH_LAUNCHES
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
 
     dev = inp.pid.device
-    _check("K1", dev, (_scene_spec(inp),
+    _check("K1", dev, (*_scene_specs(inp),
                        (inp.frame, torch.float32, (21,)),
                        (inp.words, torch.int32, (inp.words.shape[0], 2)),
                        (inp.pid, torch.int32, (inp.pid.shape[0],))))
@@ -743,7 +803,7 @@ def _launch(inp: RenderInputs) -> torch.Tensor:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rtnw_render_samples(
-            inp.scene.data_ptr(), *inp.counts,
+            inp.scene.data_ptr(), *inp.counts, *_mesh_args(inp),
             inp.frame.data_ptr(),
             inp.words.data_ptr(), int(inp.words.shape[0]),
             inp.pid.data_ptr(), int(n),
@@ -753,16 +813,17 @@ def _launch(inp: RenderInputs) -> torch.Tensor:
         )
     _raise_on("K1", lib, err)
     KERNEL_LAUNCHES += 1
+    KERNEL_BVH_LAUNCHES += inp.trih is not None
     return out
 
 
 def _launch_path(inp: PathInputs) -> torch.Tensor:
-    global PATH_LAUNCHES
+    global PATH_LAUNCHES, PATH_BVH_LAUNCHES
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
 
     dev = inp.pid.device
     n = inp.pid.shape[0]
-    _check("K2", dev, (_scene_spec(inp),
+    _check("K2", dev, (*_scene_specs(inp),
                        (inp.origin, torch.float32, (n, 3)),
                        (inp.direction, torch.float32, (n, 3)),
                        (inp.time, torch.float32, (n,)),
@@ -774,7 +835,7 @@ def _launch_path(inp: PathInputs) -> torch.Tensor:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rtnw_path_trace(
-            inp.scene.data_ptr(), *inp.counts,
+            inp.scene.data_ptr(), *inp.counts, *_mesh_args(inp),
             inp.origin.data_ptr(), inp.direction.data_ptr(),
             inp.time.data_ptr(), inp.pid.data_ptr(), *inp.words, int(n),
             inp.bounces, inp.rr_start, float(inp.tmin), inp.flags,
@@ -782,16 +843,17 @@ def _launch_path(inp: PathInputs) -> torch.Tensor:
         )
     _raise_on("K2", lib, err)
     PATH_LAUNCHES += 1
+    PATH_BVH_LAUNCHES += inp.trih is not None
     return out
 
 
 def _launch_bounce(inp: BounceInputs) -> tuple:
-    global BOUNCE_LAUNCHES
+    global BOUNCE_LAUNCHES, BOUNCE_BVH_LAUNCHES
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
 
     dev = inp.alive.device
     n = inp.alive.shape[0]
-    _check("K0", dev, (_scene_spec(inp),
+    _check("K0", dev, (*_scene_specs(inp),
                        (inp.state, torch.float32, (13, n)),
                        (inp.alive, torch.int32, (n,)),
                        (inp.u4, torch.float32, (n, 4))))
@@ -803,13 +865,14 @@ def _launch_bounce(inp: BounceInputs) -> tuple:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rtnw_bounce_step(
-            inp.scene.data_ptr(), *inp.counts,
+            inp.scene.data_ptr(), *inp.counts, *_mesh_args(inp),
             inp.state.data_ptr(), inp.alive.data_ptr(), inp.u4.data_ptr(),
             int(n), int(inp.do_rr), float(inp.tmin), inp.flags,
             out.data_ptr(), alive.data_ptr(), stream,
         )
     _raise_on("K0", lib, err)
     BOUNCE_LAUNCHES += 1
+    BOUNCE_BVH_LAUNCHES += inp.trih is not None
     return out, alive
 
 
@@ -850,6 +913,79 @@ def _closest(rows, count, cand_fn, last: bool, best_t):
         i_type = torch.where(take, i + lo, i_type)
     win = (t_type <= best_t) if last else (t_type < best_t)
     return t_type, i_type, win
+
+
+def _slab(bounds, node, O, inv):
+    """(tn, tf) of every ray against the box of `node`."""
+    tn = tf = None
+    for k in range(3):
+        t0 = (bounds[k, node] - O[k]) * inv[k]
+        t1 = (bounds[k + 3, node] - O[k]) * inv[k]
+        lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        tn = lo if tn is None else torch.maximum(tn, lo)
+        tf = hi if tf is None else torch.minimum(tf, hi)
+    return tn, tf
+
+
+def _tile_bvh_closest(inp: SceneInputs, O, D, best_t):
+    """Closest mesh hit of every ray through the tile-BVH, in front of
+    `best_t`: (t, Havel column), column -1 where the mesh does not win.
+
+    The reference's consensus walk (bounce_kernel.py:820-968) with the
+    wavefront as one block: the nodes in DFS order, a node's subtree
+    entered when any ray hits its box (slab test on directions clamped to
+    +-1e-20, `tf >= tn`, `tf >= tmin`, `tn < best_t`), else skipped. A leaf
+    tests its tile, 128 columns at a time, for the rays that hit it: a ray
+    takes the strictly closest triangle in front of its best, the lowest
+    column among equal ones. A child's box lies inside its parent's and the
+    slab arithmetic rounds monotonically, so a ray meets the leaves a
+    per-ray walk meets, in the same order, with the same best: the kernels
+    walk each ray alone and find the same winner.
+    """
+    O, D = [o[:, 0] for o in O], [d[:, 0] for d in D]
+    inv = [1.0 / torch.where(d.abs() < 1e-20, _where(d >= 0.0, 1e-20, -1e-20), d)
+           for d in D]
+    bounds, trih, tmin = inp.bvh_bounds, inp.trih, inp.tmin
+    is_leaf, tile0, skip = inp.bvh_meta[0:3].cpu().tolist()
+    best_t = best_t.clone()
+    col = torch.full(best_t.shape, -1, dtype=torch.int64, device=best_t.device)
+    # A per-ray walk tests the root, then both children of every interior
+    # node a ray hits.
+    WORK["box_tests"] += best_t.numel()
+    node = 0
+    while node < len(is_leaf):
+        tn, tf = _slab(bounds, node, O, inv)
+        node_hit = (tf >= tn) & (tf >= tmin) & (tn < best_t)
+        idx = torch.nonzero(node_hit).flatten()
+        if idx.numel() and not is_leaf[node]:
+            WORK["box_tests"] += 2 * idx.numel()
+            node += 1
+            continue
+        if idx.numel():
+            count_leaves(idx.new_tensor([idx.numel()]), tile_triangles(
+                trih[0:3], idx.new_tensor([tile0[node]]), inp.leaf_tile))
+            for lo in range(0, idx.numel(), _RAY_CHUNK):
+                r = idx[lo: lo + _RAY_CHUNK]
+                o, d = [x[r, None] for x in O], [x[r, None] for x in D]
+                bt, c = best_t[r], col[r]
+                for first in range(tile0[node], tile0[node] + inp.leaf_tile, 128):
+                    h = trih[:, first: first + 128]
+                    dn = d[0] * h[0] + d[1] * h[1] + d[2] * h[2]
+                    ok = dn < -FLT_EPSILON
+                    inv_dn = 1.0 / _where(ok, dn, 1.0)
+                    t = (h[3] - (o[0] * h[0] + o[1] * h[1] + o[2] * h[2])) * inv_dn
+                    hx, hy, hz = o[0] + t * d[0], o[1] + t * d[1], o[2] + t * d[2]
+                    uu = h[4] * hx + h[5] * hy + h[6] * hz + h[7]
+                    vv = h[8] * hx + h[9] * hy + h[10] * hz + h[11]
+                    hit = (ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+                           & (t > tmin) & (t < bt[:, None]))
+                    m, lane = _first_min(_where(hit, t, BIG))
+                    better = m < bt
+                    bt = torch.where(better, m, bt)
+                    c = torch.where(better, lane + first, c)
+                best_t[r], col[r] = bt, c
+        node = skip[node]
+    return best_t, col
 
 
 def _bounce(ray, tp, rad, u, do_rr, inp: RenderInputs, rows):
@@ -966,6 +1102,11 @@ def _bounce(ray, tp, rad, u, do_rr, inp: RenderInputs, rows):
         t_type, i_type, win = _closest(rows[name], count, fn, last, best_t)
         best_t = torch.where(win, t_type, best_t)
         winners.append((name, i_type, win))
+    if inp.trih is not None:  # the mesh, through the tile-BVH
+        t_mesh, col = _tile_bvh_closest(inp, O, D, best_t)
+        win = col >= 0
+        best_t = torch.where(win, t_mesh, best_t)
+        winners.append(("mesh", col.clamp_min(0), win))
 
     # -- winner attributes --------------------------------------------------
     zero = torch.zeros_like(ox)
@@ -1214,6 +1355,7 @@ def _trace(ray, pid, b0: int, b1: int, inp: SceneInputs, rows) -> torch.Tensor:
     for b in range(inp.bounces):
         if idx.numel() == 0:
             break
+        WORK["bounces"] += idx.numel()
         h = pcg4d(pid[idx], b0, b + 1, b1)
         u = tuple(to_uniform(x) for x in h)
         ray, tp, rad, cont = _bounce(ray, tp, rad, u, b >= inp.rr_start,
@@ -1257,6 +1399,7 @@ def bounce_reference(inp: BounceInputs) -> tuple:
     idx = torch.nonzero(inp.alive).flatten()
     if idx.numel() == 0:
         return out, alive
+    WORK["bounces"] += idx.numel()
     live = inp.state[:, idx]
     ray, tp, rad, cont = _bounce(tuple(live[0:7]), tuple(live[7:10]),
                                  tuple(live[10:13]), tuple(inp.u4[idx].unbind(1)),
@@ -1267,10 +1410,11 @@ def bounce_reference(inp: BounceInputs) -> tuple:
 
 
 __all__ = [
-    "BOUNCE_LAUNCHES", "BounceInputs", "ForwardOnly", "KERNEL_LAUNCHES",
-    "MAT_ROWS", "PATH_LAUNCHES", "PathInputs", "RenderInputs", "SceneInputs",
+    "BOUNCE_BVH_LAUNCHES", "BOUNCE_LAUNCHES", "BounceInputs", "ForwardOnly",
+    "KERNEL_BVH_LAUNCHES", "KERNEL_LAUNCHES", "MAT_ROWS", "PATH_BVH_LAUNCHES",
+    "PATH_LAUNCHES", "PathInputs", "RenderInputs", "SceneInputs",
     "bounce_inputs", "bounce_kernel", "bounce_reference", "bounce_step",
-    "bounce_step_reference", "grad_probe", "guard", "pack_frame",
+    "bounce_step_reference", "device_or_raise", "grad_probe", "guard", "pack_frame",
     "pack_scene_shaded", "path_inputs", "path_kernel", "path_reference",
     "path_trace", "path_trace_reference", "planar_state", "render_inputs",
     "render_kernel", "render_reference", "render_samples",

@@ -33,6 +33,11 @@ from raytracingthenextweekcuda_tpu_torch.ops.cuda.intersect_kernel import (
     BIG,
     TYPE_TRIANGLE,
 )
+from raytracingthenextweekcuda_tpu_torch.ops.cuda.work import (
+    WORK,
+    count_leaves,
+    tile_triangles,
+)
 from raytracingthenextweekcuda_tpu_torch.ops.wavefront_sort import safe_inv
 
 # Rays per work-list block: one CTA of K4.
@@ -340,6 +345,7 @@ def winner_reference(origin, direction, alive, tcap, wl: WorkList,
     walking = torch.ones_like(counts, dtype=torch.bool)
     lane = torch.arange(scene.tile, device=dev)
     trih = scene.trih
+    leaf_triangles = tile_triangles(trih[0:3], scene.leaf_tiles, scene.tile)
     for k in range(order.shape[1]):
         walking = walking & (k < counts) & (entry[:, k] < tmax)
         sel = torch.nonzero(walking).flatten()
@@ -347,9 +353,11 @@ def winner_reference(origin, direction, alive, tcap, wl: WorkList,
             break
         leaf = order[sel, k]
         tn, tf = _slab(scene.leaf_bounds, leaf, o[sel], inv[sel])
+        WORK["box_tests"] += int(live[sel].sum())
         node_hit = (tf >= tn) & (tf >= tmin) & (tn < best[sel]) & live[sel]
         need = node_hit.any(dim=1)
         sel, leaf, node_hit = sel[need], leaf[need], node_hit[need]
+        count_leaves(node_hit.sum(dim=1), leaf_triangles[leaf])
         for c0 in range(0, sel.numel(), _WINNER_CHUNK_BLOCKS):
             cs = sel[c0: c0 + _WINNER_CHUNK_BLOCKS]
             ts = scene.leaf_tiles[leaf[c0: c0 + _WINNER_CHUNK_BLOCKS]].to(torch.int64)

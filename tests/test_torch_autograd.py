@@ -65,7 +65,7 @@ def test_depth_gradient_matches_jax(finalized):
     scene = with_leaves(tscene, {"spheres.center0": _set(sph.center0, (0, 2), cz),
                                  "spheres.center1": _set(sph.center1, (0, 2), cz)})
     g = integrator.render_gbuffer(scene, tcamera, threefry.key(1),
-                                  RenderConfig(**cfg_kw), 2)
+                                  RenderConfig(**cfg_kw), 2, device="cpu")
     loss = g["depth"].mean()
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(jval), rtol=1e-4, atol=1e-4)
@@ -103,7 +103,7 @@ def test_albedo_gradient_matches_jax_and_finite_difference():
         scene = with_leaves(tscene, {
             "materials.albedo": _set(tscene.materials.albedo, (0, 0), r)})
         return integrator.render_pass(scene, tcamera, threefry.key(5),
-                                      RenderConfig(**kw), 4).mean()
+                                      RenderConfig(**kw), 4, device="cpu").mean()
 
     jgrad = jax.grad(jloss)(jnp.float32(0.5))
     r = torch.tensor(0.5, requires_grad=True)
@@ -150,7 +150,7 @@ def test_fit_loss_and_gradients_match_jax():
     tkey = threefry.key(0)
     target = integrator.render_gbuffer(
         fit.make_scene(torch.tensor(fit.TRUE_CENTERS), torch.tensor(fit.TRUE_ALBEDOS)),
-        fit.fit_camera(), tkey, cfg, spp)
+        fit.fit_camera(), tkey, cfg, spp, device="cpu")
     for name in ("radiance", "depth", "normal", "albedo", "hit_mask"):
         np.testing.assert_allclose(target[name].numpy(), np.asarray(jtarget[name]),
                                    rtol=1e-4, atol=1e-4, err_msg=name)
@@ -206,7 +206,7 @@ def test_fit_mesh_gradient_matches_jax(monkeypatch):
     tkey = threefry.key(0)
     base = fit.make_mesh_scene()
     target = integrator.render_gbuffer(fit.refinalize(base, true_scale),
-                                       fit.fit_camera(), tkey, cfg, spp)
+                                       fit.fit_camera(), tkey, cfg, spp, device="cpu")
     anchor = fit.refinalize(base, np.zeros(3, np.float32))
     assert anchor.packed.leaf_bounds is not None  # the tile-BVH path
     scale = torch.tensor(np.asarray(s0), requires_grad=True)
@@ -226,19 +226,20 @@ def test_backward_through_fused_render_raises():
     live = with_leaves(scene, {"spheres.center0": c, "spheres.center1": c})
     cfg = RenderConfig(width=6, height=6, spp=1, bounces=3)
     key = threefry.key(0)
-    img = integrator.render_pass(live, camera, key, cfg, 1)  # K1
+    img = integrator.render_pass(live, camera, key, cfg, 1, device="cpu")  # K1
     with pytest.raises(NotImplementedError, match="fused_bounce=False"):
         img.sum().backward()
-    g = integrator.render_gbuffer(live, camera, key, cfg, 1)  # K3 and K2
+    g = integrator.render_gbuffer(live, camera, key, cfg, 1, device="cpu")  # K3 and K2
     with pytest.raises(NotImplementedError, match="fused_bounce=False"):
         g["radiance"].sum().backward()
     # The guard adds exactly zero: the fused forward is unchanged.
     np.testing.assert_array_equal(
-        img.detach().numpy(), integrator.render_pass(scene, camera, key, cfg, 1).numpy())
+        img.detach().numpy(), integrator.render_pass(scene, camera, key, cfg, 1,
+                                                  device="cpu").numpy())
     # The same scene with fused_bounce=False differentiates.
     g = integrator.render_gbuffer(live, camera, key,
                                   RenderConfig(width=6, height=6, spp=1, bounces=3,
-                                               fused_bounce=False), 1)
+                                               fused_bounce=False), 1, device="cpu")
     g["depth"].mean().backward()
     assert torch.isfinite(c.grad).all()
 
@@ -249,8 +250,8 @@ def test_run_fit_steps_and_writes_png(mesh, tmp_path, monkeypatch):
     run = fit.run_fit_mesh if mesh else fit.run_fit
     losses = []
     out = tmp_path / "fit.png"
-    rc = run(steps=3, out=str(out), width=16, height=16, spp=2, verbose=False,
-             losses=losses)
+    rc = run(steps=3, out=str(out), width=16, height=16, spp=2, device="cpu",
+             verbose=False, losses=losses)
     assert rc in (0, 1) and len(losses) == 3 and np.isfinite(losses).all()
     from raytracingthenextweekcuda_tpu_torch.io.image import read_png
     assert read_png(str(out)).shape == (16, 32, 3)  # target and fit side by side

@@ -75,10 +75,10 @@ def _render_both(preset, cfg_kw, seed, samples):
     cfg = RenderConfig(**cfg_kw)
     out = bk.render_samples(
         tscene.packed, _reference_frame(jcamera, cfg.aspect_ratio),
-        threefry.split(threefry.key(seed), samples), cfg,
+        threefry.split(threefry.key(seed), samples), cfg, device="cpu",
     ).reshape(cfg.height, cfg.width, 3).numpy()
     own = integrator.render_pass(tscene, tcamera, threefry.key(seed), cfg,
-                                 samples).numpy()
+                                 samples, device="cpu").numpy()
     return ref, out, own
 
 
@@ -122,9 +122,10 @@ def test_render_samples_pixel_ids_slice_the_image():
     cfg = RenderConfig(width=12, height=10, spp=2, bounces=4)
     frame = tcam.derive(camera, cfg.aspect_ratio)
     words = threefry.split(threefry.key(5), 2)
-    full = bk.render_samples(scene.packed, frame, words, cfg)
+    full = bk.render_samples(scene.packed, frame, words, cfg, device="cpu")
     ids = torch.tensor([0, 7, 33, 119, 64], dtype=torch.int32)
-    part = bk.render_samples(scene.packed, frame, words, cfg, pixel_ids=ids)
+    part = bk.render_samples(scene.packed, frame, words, cfg, pixel_ids=ids,
+                             device="cpu")
     np.testing.assert_array_equal(part.numpy(), full[ids.long()].numpy())
 
 
@@ -135,7 +136,7 @@ def test_cpu_tensors_take_the_plain_version():
     frame = tcam.derive(camera, cfg.aspect_ratio)
     words = threefry.split(threefry.key(0), 1)
     before = bk.KERNEL_LAUNCHES
-    a = bk.render_samples(scene.packed, frame, words, cfg)
+    a = bk.render_samples(scene.packed, frame, words, cfg, device="cpu")
     b = bk.render_samples_reference(scene.packed, frame, words, cfg)
     assert bk.KERNEL_LAUNCHES == before
     np.testing.assert_array_equal(a.numpy(), b.numpy())

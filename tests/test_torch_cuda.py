@@ -1,7 +1,8 @@
 """K1, K2, K0, K3 and K4 against their plain versions on a CUDA card (K1,
-K2 and K0 at rtol = atol = 1e-4, K3 and K4 bit for bit), and renders (and
-one backward of the differentiable wavefront) on the card against the same
-on the CPU. These tests skip without a card. The file
+K2 and K0 at rtol = atol = 1e-4, also on tile-BVH packs, K3 and K4 bit for
+bit), and renders (and one backward of the differentiable wavefront and of
+the LBVH regime) on the card against the same on the CPU. These tests skip
+without a card. The file
 imports no jax, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -201,3 +202,100 @@ def test_wavefront_backward_on_card_matches_cpu(cuda_device):
     for card, cpu in zip(out["cuda"], out["cpu"]):
         assert np.isfinite(card).all()
         np.testing.assert_allclose(card, cpu, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stand_in", ["published", "stress"])
+def test_bvh_kernels_match_plain_on_card(stand_in, cuda_device):
+    """K1, K2 and K0 on a tile-BVH pack (the mesh stand-ins: 2 and 32
+    leaves of 768) against their plain versions, which walk it as one
+    consensus block."""
+    from raytracingthenextweekcuda_tpu_torch.apps import bench_scenes
+    from raytracingthenextweekcuda_tpu_torch.ops import rng
+
+    scene, camera, _ = getattr(bench_scenes, f"{stand_in}_mesh_scene")()
+    scene = finalize(scene)
+    assert scene.packed.leaf_bounds is not None
+    cfg = RenderConfig(width=64, height=64, spp=2, bounces=6, spp_per_pass=2,
+                       russian_roulette=True, rr_start_bounce=3)
+    frame = tcam.derive(camera, cfg.aspect_ratio)
+    words = threefry.split(threefry.key(3), 2)
+    before = (bk.KERNEL_BVH_LAUNCHES, bk.PATH_BVH_LAUNCHES, bk.BOUNCE_BVH_LAUNCHES)
+    inp = bk.render_inputs(scene.packed, frame, words, cfg, device=cuda_device)
+    np.testing.assert_allclose(bk.render_kernel(inp).cpu().numpy(),
+                               bk.render_reference(inp).cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    rays, ctx = tcam.generate_rays(frame, words[0], 64, 64, device=cuda_device)
+    np.testing.assert_allclose(bk.path_trace(scene.packed, rays, ctx, cfg).cpu().numpy(),
+                               bk.path_trace_reference(scene.packed, rays, ctx,
+                                                       cfg).cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    state = bk.bounce_step_reference(
+        scene.packed, bk.planar_state(rays),
+        rng.bounce_uniforms(ctx.pixel_id, ctx.base0, ctx.base1, 0), 0, cfg)
+    u4 = rng.bounce_uniforms(ctx.pixel_id, ctx.base0, ctx.base1, 1)
+    k0 = bk.bounce_step(scene.packed, state, u4, 1, cfg)
+    plain = bk.bounce_step_reference(scene.packed, state, u4, 1, cfg)
+    assert torch.equal(k0[7], plain[7]) and bool(state[7].any())
+    for k in range(14):
+        np.testing.assert_allclose(k0[k].cpu().numpy(), plain[k].cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=f"row {k}")
+    assert (bk.KERNEL_BVH_LAUNCHES, bk.PATH_BVH_LAUNCHES,
+            bk.BOUNCE_BVH_LAUNCHES) == tuple(b + 1 for b in before)
+
+
+@pytest.mark.cuda
+def test_forced_megastep_on_card_matches_cpu(cuda_device, mesh_scene, monkeypatch):
+    """The forced megastep route (K1 with its tile-BVH walk) on the card
+    against the same route on the CPU."""
+    scene, camera = mesh_scene
+    monkeypatch.setattr(integrator, "_sorted_eligible", lambda *_: False)
+    cfg = RenderConfig(width=24, height=16, spp=4, bounces=5, spp_per_pass=2)
+    before = bk.KERNEL_BVH_LAUNCHES
+    card = integrator.render(scene, camera, cfg, device=cuda_device)
+    assert bk.KERNEL_BVH_LAUNCHES == before + 2
+    cpu = integrator.render(scene, camera, cfg, device="cpu")
+    np.testing.assert_allclose(card.accum.cpu().numpy(), cpu.accum.numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("finalized", [False, True], ids=["plain", "k3"])
+def test_lbvh_render_and_gradient_on_card_match_cpu(cuda_device, finalized):
+    """A scene with an LBVH over its mesh (the LBVH walk in torch, beside K3
+    when finalized) on the card against the CPU: the render at 1e-4 and the
+    gradient of the depth mean with respect to a shift of every vertex at
+    rtol 1e-3."""
+    import dataclasses
+
+    from raytracingthenextweekcuda_tpu_torch.models.scene import with_leaves
+    from raytracingthenextweekcuda_tpu_torch.ops import traverse
+    from raytracingthenextweekcuda_tpu_torch.ops.bvh import build_bvh
+
+    scene, camera = tpresets.mesh_showcase(16, 32)
+    if finalized:
+        scene = finalize(scene, use_bvh=False)
+    scene = dataclasses.replace(scene, bvh=build_bvh(scene.triangles))
+    cfg = RenderConfig(width=24, height=16, spp=2, bounces=4, spp_per_pass=2)
+    steps = traverse.STEPS
+    card = integrator.render(scene, camera, cfg, device=cuda_device)
+    assert traverse.STEPS > steps
+    cpu = integrator.render(scene, camera, cfg, device="cpu")
+    np.testing.assert_allclose(card.accum.cpu().numpy(), cpu.accum.numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+    def grad(device):
+        dz = torch.zeros((), device=device, requires_grad=True)
+        shift = torch.zeros(3, device=device)
+        v = (torch.from_numpy(np.asarray(scene.triangles.vertices)).to(device)
+             + torch.stack([shift[0], shift[1], dz]))
+        g = integrator.render_gbuffer(with_leaves(scene, {"triangles.vertices": v}),
+                                      camera, threefry.key(2),
+                                      RenderConfig(width=24, height=16, spp=1,
+                                                   bounces=2), 1, device=device)
+        g["depth"].mean().backward()
+        return float(dz.grad)
+
+    g_card, g_cpu = grad(cuda_device), grad(torch.device("cpu"))
+    assert np.isfinite(g_card) and g_card != 0.0
+    np.testing.assert_allclose(g_card, g_cpu, rtol=1e-3, atol=1e-6)

@@ -44,7 +44,7 @@ def test_gbuffer_matches_reference(preset, packed, size, fused):
                                      JConfig(**kw), 2)
     before = bk.PATH_LAUNCHES
     out = integrator.render_gbuffer(tscene, tcamera, threefry.key(4),
-                                    RenderConfig(**kw), 2)
+                                    RenderConfig(**kw), 2, device="cpu")
     assert bk.PATH_LAUNCHES == before  # CPU tensors: the plain version
     assert set(out) == set(AOVS)
     for name in AOVS:
@@ -65,10 +65,10 @@ def test_gbuffer_radiance_equals_render_pass():
     scene = finalize(scene)
     cfg = RenderConfig(width=12, height=12, spp=2, bounces=5)
     key = threefry.key(6)
-    g = integrator.render_gbuffer(scene, camera, key, cfg, 2)
+    g = integrator.render_gbuffer(scene, camera, key, cfg, 2, device="cpu")
     np.testing.assert_array_equal(
         g["radiance"].numpy(),
-        integrator.render_pass(scene, camera, key, cfg, 2).numpy())
+        integrator.render_pass(scene, camera, key, cfg, 2, device="cpu").numpy())
 
 
 def test_generate_rays_is_a_group_of_one():

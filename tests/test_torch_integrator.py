@@ -1,9 +1,7 @@
 """The port's offline render against the JAX reference through each of its
-engines, its device rules, what it refuses, and that the port package never
-imports JAX."""
+engines, its device rules, and that the port package never imports JAX."""
 
 import ast
-import dataclasses
 import pathlib
 
 import numpy as np
@@ -64,12 +62,39 @@ def test_cuda_request_without_cuda_raises(cornell, monkeypatch):
     assert bk.KERNEL_LAUNCHES == before
 
 
+def test_entry_points_default_to_cuda(cornell, monkeypatch):
+    """Every public entry point renders on the card unless asked for the
+    CPU, so without CUDA a call that names no device raises."""
+    from raytracingthenextweekcuda_tpu_torch.apps import fit
+    from raytracingthenextweekcuda_tpu_torch.models import camera as tcam
+    from raytracingthenextweekcuda_tpu_torch.ops import threefry
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene, camera = cornell
+    cfg = RenderConfig(**CFG)
+    frame = tcam.derive(camera, cfg.aspect_ratio)
+    words = threefry.split(threefry.key(0), 1)
+    calls = [
+        lambda: integrator.render(scene, camera, cfg),
+        lambda: integrator.render_pass(scene, camera, threefry.key(0), cfg, 1),
+        lambda: integrator.render_gbuffer(scene, camera, threefry.key(0), cfg, 1),
+        lambda: fit.run_fit(steps=1, verbose=False),
+        lambda: fit.run_fit_mesh(steps=1, verbose=False),
+        lambda: bk.render_samples(scene.packed, frame, words, cfg),
+        lambda: bk.render_inputs(scene.packed, frame, words, cfg),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
 def test_differentiable_wavefront_matches_reference(jax_cornell_film, cornell):
     """fused_bounce=False on a finalized scene: the torch wavefront over K3,
     per sample, gives the reference's image (and so K1's)."""
     scene, camera = cornell
     before = bk.KERNEL_LAUNCHES
-    film = integrator.render(scene, camera, RenderConfig(**CFG, fused_bounce=False))
+    film = integrator.render(scene, camera, RenderConfig(**CFG, fused_bounce=False),
+                             device="cpu")
     assert bk.KERNEL_LAUNCHES == before
     np.testing.assert_allclose(film.accum.numpy(),
                                np.asarray(jax_cornell_film.accum),
@@ -82,20 +107,9 @@ def test_unfinalized_scene_matches_reference():
     jscene, jcamera = jpresets.defocus_blur()
     scene, camera = presets.defocus_blur()
     ref = jintegrator.render(jscene, jcamera, JConfig(**kw))
-    film = integrator.render(scene, camera, RenderConfig(**kw))
+    film = integrator.render(scene, camera, RenderConfig(**kw), device="cpu")
     np.testing.assert_allclose(film.accum.numpy(), np.asarray(ref.accum),
                                rtol=1e-4, atol=1e-4)
-
-
-def test_lbvh_scenes_raise(cornell):
-    scene, camera = cornell
-    lbvh = dataclasses.replace(scene, bvh=object())
-    for fused in (True, False):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            integrator.render(lbvh, camera, RenderConfig(**CFG, fused_bounce=fused))
-    with pytest.raises(NotImplementedError, match="LBVH"):
-        integrator.render_gbuffer(lbvh, camera, np.zeros(2, np.uint32),
-                                  RenderConfig(**CFG), 1)
 
 
 def test_cli_render_mesh_takes_the_tile_bvh(tmp_path, monkeypatch):

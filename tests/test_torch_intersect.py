@@ -4,8 +4,8 @@ numpy: moving spheres (one hollow), finite planes of all three
 orientations, one- and two-sided, and a triangle soup with back faces
 culled or not. Hit t and normals at rtol = atol = 1e-4 (both are float32
 with correctly rounded sqrt; XLA contracts FMAs), the hit flags, front
-faces and material ids exactly. Also `integrator.intersect_scene`'s three
-regimes.
+faces and material ids exactly. Also `integrator.intersect_scene`'s
+regimes, with and without an LBVH.
 """
 
 import numpy as np
@@ -25,6 +25,7 @@ from raytracingthenextweekcuda_tpu_torch.models.scene import (
     from_jax_arrays,
 )
 from raytracingthenextweekcuda_tpu_torch.ops import intersect
+from raytracingthenextweekcuda_tpu_torch.ops.bvh import build_bvh
 from raytracingthenextweekcuda_tpu_torch.ops.rays import Hit, Rays, closer
 
 
@@ -111,7 +112,9 @@ def test_hit_none_and_closer():
 
 def test_intersect_scene_regimes():
     """Unfinalized: the plain intersects; finalized: K3's plain version and
-    the recompute, which agree; with an LBVH: refused."""
+    the recompute, which agree; with an LBVH over the triangles, either
+    regime with the LBVH walk in the triangles' place, which selects as they
+    do."""
     scene, _ = presets.defocus_blur()
     _, rays = _random_rays(3, 1024)
     plain = integrator.intersect_scene(scene, rays, EPSILON)
@@ -121,6 +124,15 @@ def test_intersect_scene_regimes():
     np.testing.assert_allclose(fused.t.numpy(), plain.t.numpy(), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(fused.normal.numpy(), plain.normal.numpy(),
                                rtol=1e-4, atol=1e-4)
-    lbvh = Scene(**{**scene.__dict__, "bvh": object()})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        integrator.intersect_scene(lbvh, rays, EPSILON)
+    _, soup = _random_scene(3)  # spheres, planes and 40 triangles
+    plain = integrator.intersect_scene(soup, rays, EPSILON)
+    assert plain.valid.float().mean() > 0.2
+    lbvh = Scene(**{**soup.__dict__, "bvh": build_bvh(soup.triangles)})
+    for regime in (lbvh, Scene(**{**finalize(soup, use_bvh=False).__dict__,
+                                  "bvh": lbvh.bvh})):
+        hit = integrator.intersect_scene(regime, rays, EPSILON)
+        np.testing.assert_array_equal(hit.valid.numpy(), plain.valid.numpy())
+        np.testing.assert_array_equal(hit.material_id.numpy(), plain.material_id.numpy())
+        np.testing.assert_allclose(hit.t.numpy(), plain.t.numpy(), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(hit.normal.numpy(), plain.normal.numpy(),
+                                   rtol=1e-4, atol=1e-4)

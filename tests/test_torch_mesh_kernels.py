@@ -32,6 +32,7 @@ from raytracingthenextweekcuda_tpu_torch.models.scene import finalize, from_jax_
 from raytracingthenextweekcuda_tpu_torch.ops import threefry
 from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
 from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
+from raytracingthenextweekcuda_tpu_torch.ops.cuda import work
 from raytracingthenextweekcuda_tpu_torch.ops.fused import device_scene, mesh_query
 from raytracingthenextweekcuda_tpu_torch.ops.materials import material_table
 from raytracingthenextweekcuda_tpu_torch.ops.rays import Rays
@@ -242,6 +243,28 @@ def test_k4_walk_is_order_independent(mesh_wavefronts):
                                      alive=a[perm], t_cap=c[perm])
     np.testing.assert_array_equal(t0[perm].numpy(), t1.numpy())
     np.testing.assert_array_equal(c0[perm].numpy(), c1.numpy())
+
+
+def test_k4_plain_counts_its_work(mesh_wavefronts):
+    """The plain K4 counts the work its inputs need (ops/cuda/work.py): the
+    live rays' leaf box tests, the leaves they enter, and those leaves'
+    triangles, without the zero padding of their tiles."""
+    _, tscene, ds, fronts = mesh_wavefronts
+    _, o, d, tm, alive, tcap = fronts[0]
+    leaves = ds.leaves
+    per_leaf = work.tile_triangles(leaves.trih[0:3], leaves.leaf_tiles, leaves.tile)
+    assert int(per_leaf.sum()) == int((tscene.triangles.mesh_id >= 0).sum())
+    assert int(per_leaf.sum()) < leaves.n_leaves * leaves.tile
+    work.reset()
+    k4.intersect_packed_bvh(Rays(torch.from_numpy(o), torch.from_numpy(d),
+                                 torch.from_numpy(tm)), leaves, EPSILON,
+                            alive=torch.from_numpy(alive),
+                            t_cap=torch.from_numpy(tcap))
+    counts = work.WORK
+    assert counts["bounces"] == 0
+    assert 0 < counts["leaf_visits"] <= counts["box_tests"]
+    assert (counts["leaf_visits"] <= counts["triangle_tests"]
+            <= counts["leaf_visits"] * int(per_leaf.max()))
 
 
 # ---- device rules ----------------------------------------------------------

@@ -48,7 +48,8 @@ def _reference(cfg_kw):
 
 
 def _render(scene, camera, **kw):
-    return integrator.render(scene, camera, RenderConfig(**kw)).accum.numpy()
+    return integrator.render(scene, camera, RenderConfig(**kw),
+                             device="cpu").accum.numpy()
 
 
 @pytest.mark.parametrize("extra", [{}, dict(russian_roulette=True, rr_start_bounce=2,
@@ -81,8 +82,8 @@ def test_tile_bvh_render_matches_brute_force(mesh):
     brute = finalize(presets.mesh_showcase(16, 32)[0], use_bvh=False)
     assert brute.packed.leaf_bounds is None
     cfg = RenderConfig(**CFG)
-    a = integrator.render(scene, camera, cfg).mean.numpy()
-    b = integrator.render(brute, camera, cfg).mean.numpy()
+    a = integrator.render(scene, camera, cfg, device="cpu").mean.numpy()
+    b = integrator.render(brute, camera, cfg, device="cpu").mean.numpy()
     diff = np.abs(a - b)
     print(f"tile-BVH vs brute: {(diff > 1e-3).mean():.4%} of values off by > 1e-3")
     assert (diff > 1e-3).mean() < 0.01

@@ -3,8 +3,9 @@ bounce kernel K0 (`bounce_step_reference`) against the JAX reference's
 `path_trace` and `bounce_step` (their Pallas kernels in interpret mode on
 the CPU), from the reference's own rays and RNG context; ten chained K0
 steps against K2; and the entries' rules (device dispatch, scalar key
-words, tile-BVH packs, the forward-only guard). K2 and K0 themselves are
-tested on a card by test_torch_cuda.py.
+words, the forward-only guard). Their tile-BVH branch is held by
+test_torch_megastep_bvh.py; K2 and K0 themselves are tested on a card by
+test_torch_cuda.py.
 
 Tolerances: rtol = atol = 1e-4 as for K1 (tests/test_torch_bounce_kernel.py),
 smallpt by the reference's statistical rule (under 5% of values off by
@@ -148,7 +149,7 @@ def test_k2_equals_k1_on_its_rays():
     frame = tcam.derive(camera, cfg.aspect_ratio)
     words = threefry.split(threefry.key(9), 1)
     rays, ctx = tcam.generate_rays(frame, words[0], 12, 10)
-    k1 = bk.render_samples(scene.packed, frame, words, cfg)
+    k1 = bk.render_samples(scene.packed, frame, words, cfg, device="cpu")
     np.testing.assert_array_equal(bk.path_trace(scene.packed, rays, ctx, cfg).numpy(),
                                   k1.numpy())
 
@@ -180,14 +181,6 @@ def test_entries_refuse_what_they_cannot_trace():
     rays, ctx = tcam.generate_rays_multi(frame, words, 4, 4)
     with pytest.raises(ValueError, match="scalar RayCtx key words"):
         bk.path_trace(scene.packed, rays, ctx, cfg)
-    mesh, _ = tpresets.mesh_showcase(16, 32)
-    mesh = finalize(mesh)  # 960 triangles: a tile-BVH pack
-    rays, ctx = tcam.generate_rays(frame, words[0], 4, 4)
-    with pytest.raises(ValueError, match="consensus-BVH"):
-        bk.path_trace(mesh.packed, rays, ctx, cfg)
-    u4 = torch.zeros((16, 4))
-    with pytest.raises(ValueError, match="consensus-BVH"):
-        bk.bounce_step(mesh.packed, bk.planar_state(rays), u4, 0, cfg)
 
 
 def test_k0_launch_checks_its_inputs():
