@@ -8,7 +8,8 @@ Phases, each printing one line or more:
      without the tile-BVH walk), K3 (csrc/intersect_kernel.cu) and K4
      (csrc/bvh_winner_kernel.cu) with nvcc, one process per source;
      ptxas's registers and spills per kernel, K1 without the walk held at
-     72 registers and 92 bytes of spills or fewer; the tile-BVH builder;
+     K1_REGS registers and K1_SPILL bytes of spills or fewer; the tile-BVH
+     builder;
   3. K1 vs plain: K1 against its plain torch version on the same CUDA
      tensors, 5 presets at 64x64, 4 spp, 6 bounces, plus Cornell with
      Russian roulette and with the sky off (rtol = atol = 1e-4; smallpt by
@@ -18,7 +19,8 @@ Phases, each printing one line or more:
      bounces, one pass) through integrator.render, counting K1's launches
      and checking the image;
   5. K1 plain time: the plain version at the headline config (32 spp,
-     scaled to 128), and K1 against it on those same inputs (1e-4);
+     scaled to 128), the mean bounces a path it counted, and K1 against it
+     on those same inputs (1e-4);
   6. K3 and K4 vs plain: each kernel against its plain version on the same
      CUDA tensors, bit for bit (codes equal, max |dt| 0), on the primary
      and the bounce-2 wavefronts of both mesh stand-ins, and K3 with
@@ -28,9 +30,12 @@ Phases, each printing one line or more:
   8. mesh main path: the mesh benchmark (the 960-triangle stand-in,
      512x512, 32 spp, 10 bounces, passes of 16 spp, sorted) through
      integrator.render, counting K3's and K4's launches and checking the
-     image;
+     image; then K4's summed device time over one more render's launches
+     (torch.profiler);
   9. K3 and K4 times: CUDA events of each kernel on the full-size primary
-     and bounce-2 wavefronts beside its plain version's time;
+     and bounce-2 wavefronts beside its plain version's time; K4's
+     evaluated (block, leaf) pairs, the mean rays of a block that need the
+     leaf (leaf visits over pairs) and the threads a ray that mean gives;
  10. K2 and K0 vs plain: K2 against its plain version on the same CUDA
      tensors on the Cornell primary wavefront (512x512, one sample, 10
      bounces) and on the 5 presets at 64x64 (smallpt by the statistical
@@ -74,7 +79,10 @@ Phases, each printing one line or more:
      (K3 over the pack, the walk merged on top) on the card against the
      CPU (1e-4), counting K3's launches.
 
-Then one JSON line with the kernels' numbers (each with its bound: the
+Every kernel's time stands beside its CTAs resident on one SM (its
+occupancy query at the launch's shared memory) and the waves its grid
+makes on the card's SMs. Then one JSON line with the kernels' numbers
+(each with its CTAs a SM, its waves and its bound: the
 larger of its bytes over 3.35 TB/s and its float32 operations over 67
 TFLOP/s plus its float64 operations over 34 TFLOP/s, for the work this
 run's inputs need), the nvidia-smi line, and a last JSON line {"ok": true,
@@ -180,6 +188,10 @@ def _ptxas_by_entry(log: str) -> dict:
     return out
 
 
+# ptxas's registers and spill bytes of K1 without the tile-BVH walk.
+K1_REGS = 72
+K1_SPILL = 4
+
 # The bounds: the least time the card could take for a kernel's work, the
 # larger of its bytes (each input read once, each output written once) over
 # the HBM rate and its operations over the peak rate of their type
@@ -283,6 +295,21 @@ def _step_bound(inp, counts) -> tuple:
                   *_bounce_ops(inp, counts))
 
 
+def _residency(query: str, args: tuple, n: int) -> tuple:
+    """(CTAs resident on one SM, waves) of a kernel's launch over `n` rays
+    or pixels, one a thread (K4: one 128-ray block a CTA, the same count),
+    from the kernel's occupancy query at the launch's shared memory."""
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
+
+    ctas, threads = build.occupancy(query, *args)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return ctas, -(-n // threads) / (ctas * sms)
+
+
+def _res(occ: tuple) -> str:
+    return f"{occ[0]} CTAs a SM, {occ[1]:.2f} waves"
+
+
 def _check_close(name, out, plain, smallpt=False) -> float:
     """out vs plain at rtol = atol = 1e-4 (smallpt: under 5% of values off
     by > 0.2, means within 1e-2), finite and of the same shape. Returns
@@ -347,8 +374,8 @@ def main() -> None:
         for entry, ptxas in _ptxas_by_entry(log).items():
             ptxas_lines[entry] = "; ".join(ptxas)
             print(f"[2 build] {src} {entry} ptxas: {ptxas_lines[entry]}", flush=True)
-    # K1's instantiation without the tile-BVH walk keeps the registers and
-    # spills it had before the walk was added (72 and 92 bytes).
+    # K1 without the tile-BVH walk: at most K1_REGS registers and K1_SPILL
+    # bytes of spills.
     regs_spills = {}
     for entry in ("render_kernel<false>", "render_kernel<true>"):
         line = ptxas_lines.get(entry, "")
@@ -357,13 +384,13 @@ def main() -> None:
         if not (regs and spill):
             raise AssertionError(f"no ptxas registers and spills for K1 {entry}")
         regs_spills[entry] = (int(regs.group(1)), int(spill.group(1)))
-    regs, spill = regs_spills["render_kernel<false>"]
-    if regs > 72 or spill > 92:
-        raise AssertionError(f"K1 without the walk: {regs} registers and {spill} "
-                             "spill bytes, above 72 and 92")
     print(f"[2 build] K1 registers, spill bytes: without the tile-BVH walk "
           f"{regs_spills['render_kernel<false>']}, with it "
           f"{regs_spills['render_kernel<true>']}", flush=True)
+    regs, spill = regs_spills["render_kernel<false>"]
+    if regs > K1_REGS or spill > K1_SPILL:
+        raise AssertionError(f"K1 without the walk: {regs} registers and {spill} "
+                             f"spill bytes, above {K1_REGS} and {K1_SPILL}")
 
     # 3. K1 vs plain on the card
     cases = [
@@ -436,12 +463,16 @@ def main() -> None:
     k1_plain_ms, plain = _host_ms(lambda: bk.render_reference(sub))
     k1_plain_ms *= 128 / plain_spp
     k1_bound = _render_bound(inp, work.WORK, 128 / plain_spp)
+    mean_bounces = work.WORK["bounces"] / (sub.pid.numel() * plain_spp)
+    k1_occ = _residency("rtnw_render_occupancy", (0, 0, *inp.counts), inp.pid.numel())
     head_err = _check_close("K1 headline", bk.render_kernel(sub), plain)
     k1_err = max(k1_err, head_err)
     print(f"[5 K1 plain time] headline config: K1 {k1_ms:.3f} ms (CUDA events, "
-          f"mean of 3) | plain {k1_plain_ms:.1f} ms (host clock, {plain_spp} spp "
-          f"x{128 // plain_spp} scaled) | K1 vs plain at {plain_spp} spp: "
-          f"max|diff| {head_err:.3e} (rtol=atol=1e-4) | {card}", flush=True)
+          f"mean of 3; {_res(k1_occ)}) | plain {k1_plain_ms:.1f} ms (host clock, "
+          f"{plain_spp} spp x{128 // plain_spp} scaled) | mean bounces a path "
+          f"{mean_bounces:.4f} of {cfg.bounces} (the plain version's count) | K1 vs "
+          f"plain at {plain_spp} spp: max|diff| {head_err:.3e} (rtol=atol=1e-4) | "
+          f"{card}", flush=True)
 
     # 6. K3 and K4 against their plain versions, bit for bit
     mesh_cfg = RenderConfig(width=512, height=512, spp=32, bounces=10,
@@ -540,9 +571,25 @@ def main() -> None:
           f"{k3_launches} K4 launches {k4_launches} | centre (sphere) rgb "
           f"{centre.round(2).tolist()} floor rgb {floor.round(1).tolist()}",
           flush=True)
+    # K4's summed device time over the launches of one mesh render.
+    from torch.profiler import ProfilerActivity, profile
+
+    pub, pub_cam, _ = bench_scenes.published_mesh_scene()
+    pub = finalize(pub)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        integrator.render(pub, pub_cam, mesh_cfg, device=dev)
+        torch.cuda.synchronize()
+    k4_events = [e for e in prof.key_averages() if "bvh_winner_kernel" in e.key]
+    k4_prof_n = sum(e.count for e in k4_events)
+    k4_prof_ms = sum(e.device_time_total for e in k4_events) / 1e3
+    print(f"[8 mesh main path] K4 over one render (torch.profiler): "
+          + (f"{k4_prof_ms:.3f} ms device in {k4_prof_n} launches, "
+             f"{k4_prof_ms / k4_prof_n:.4f} ms a launch" if k4_prof_n and k4_prof_ms
+             else "not measured (no K4 device time in the trace)")
+          + f" | {card}", flush=True)
 
     # 9. K3 and K4 device times on the full-size wavefronts
-    times, bounds = {}, {}
+    times, bounds, occ = {}, {}, {}
     for front, (rays, alive, ds, args) in timing_inputs.items():
         k3_ms = _event_ms(lambda: k3.intersect_packed(rays, ds.analytic, EPSILON,
                                                       alive=alive), reps=10)
@@ -557,10 +604,23 @@ def main() -> None:
         times[front] = (k3_ms, k3p_ms, k4_ms, k4p_ms)
         bounds[front] = (_k3_bound(rays, alive, ds.analytic),
                          _k4_bound(args[0], args[4], ds.leaves, work.WORK))
+        occ[front] = (_residency("rtnw_closest_hit_occupancy", ds.analytic.counts,
+                                 rays.count),
+                      _residency("rtnw_bvh_winner_occupancy",
+                                 (ds.leaves.max_count,), args[0].shape[0]))
+        needing = work.WORK["leaf_visits"] / max(work.WORK["block_leaves"], 1)
+        lanes = min(32, 1 << int(np.floor(np.log2(128 / needing)))) if needing else 32
         print(f"[9 kernel times] published/{front} ({rays.count} rays): K3 "
-              f"{k3_ms:.4f} ms vs plain {k3p_ms:.3f} ms | K4 {k4_ms:.4f} ms vs "
-              f"plain {k4p_ms:.3f} ms | work-list build {wl_ms:.3f} ms "
+              f"{k3_ms:.4f} ms vs plain {k3p_ms:.3f} ms ({_res(occ[front][0])}) | "
+              f"K4 {k4_ms:.4f} ms vs plain {k4p_ms:.3f} ms ({_res(occ[front][1])}, "
+              f"leaf buffers of {ds.leaves.max_count} columns; bound "
+              f"{bounds[front][1][0]:.4f} ms) | work-list build {wl_ms:.3f} ms "
               f"(CUDA events; plain: host clock, one run) | {card}", flush=True)
+        print(f"[9 K4 work] published/{front}: {work.WORK['block_leaves']} (block, "
+              f"leaf) pairs evaluated, {work.WORK['leaf_visits']} ray-leaf visits: "
+              f"{needing:.2f} needing rays a pair, so S = {lanes} threads a ray at "
+              f"that mean | {work.WORK['triangle_tests']} triangle tests",
+              flush=True)
 
     # 10. K2 and K0 against their plain versions; K0's main path
     from raytracingthenextweekcuda_tpu_torch.apps import fit
@@ -775,11 +835,15 @@ def main() -> None:
     base_mem = torch.cuda.memory_allocated(dev)
     bwd_ms, _ = _host_ms(lambda: depth_grad(dev, 512, with_radiance=True))
     peak_gib = (torch.cuda.max_memory_allocated(dev) - base_mem) / 2**30
+    k2_occ = _residency("rtnw_render_occupancy", (1, 0, *path_inp.counts),
+                        path_inp.pid.numel())
+    k0_occ = _residency("rtnw_render_occupancy", (2, 0, *k0_inp.counts),
+                        k0_inp.alive.numel())
     print(f"[13 times] K2 {k2_ms:.4f} ms vs plain {k2p_ms:.1f} ms (cornell "
-          f"512x512 primary wavefront, 10 bounces) | K0 {k0_ms:.4f} ms vs plain "
-          f"{k0p_ms:.2f} ms (one bounce, 262144 rays) | K1 after the refactor "
-          f"{k1_ms:.3f} ms (headline, phase 5) | CUDA events; plain: host clock, "
-          f"one run | {card}", flush=True)
+          f"512x512 primary wavefront, 10 bounces; {_res(k2_occ)}) | K0 "
+          f"{k0_ms:.4f} ms vs plain {k0p_ms:.2f} ms (one bounce, 262144 rays; "
+          f"{_res(k0_occ)}) | K1 {k1_ms:.3f} ms (headline, phase 5) | CUDA "
+          f"events; plain: host clock, one run | {card}", flush=True)
     print(f"[13 times] host clock: G-buffer 512x512, 8 spp, 10 bounces "
           f"{gb_ms:.1f} ms | fused_bounce=False render 512x512, 2 spp, 10 "
           f"bounces {wf_ms:.1f} ms | fit step (96x96, 8 spp, forward and "
@@ -936,14 +1000,20 @@ def main() -> None:
     if not torch.equal(k0b[1], plain[1]):
         raise AssertionError("K0-BVH 512x512: alive flags differ")
     bvh_err["K0"] = max(bvh_err["K0"], _check_close("K0-BVH 512x512", k0b[0], plain[0]))
-    print(f"[15 walk times] K1-BVH {k1b_ms:.3f} ms a 16-spp pass vs plain "
-          f"{k1b_plain_ms:.1f} ms (1 spp x16; its work: "
+    k1b_occ = _residency("rtnw_render_occupancy", (0, 1, *inp.counts),
+                         inp.pid.numel())
+    k2b_occ = _residency("rtnw_render_occupancy", (1, 1, *mpath.counts),
+                         mpath.pid.numel())
+    k0b_occ = _residency("rtnw_render_occupancy", (2, 1, *k0b_inp.counts),
+                         k0b_inp.alive.numel())
+    print(f"[15 walk times] K1-BVH {k1b_ms:.3f} ms a 16-spp pass ({_res(k1b_occ)})"
+          f" vs plain {k1b_plain_ms:.1f} ms (1 spp x16; its work: "
           f"{work_1spp['bounces']} path-bounces, {work_1spp['box_tests']} node "
           f"tests, {work_1spp['leaf_visits']} leaf visits, "
           f"{work_1spp['triangle_tests']} triangle tests) | K2-BVH {k2b_ms:.3f} "
-          f"ms vs plain {k2b_plain_ms:.1f} ms | K0-BVH {k0b_ms:.4f} ms vs plain "
-          f"{k0b_plain_ms:.1f} ms | CUDA events; plain: host clock, one run | "
-          f"{card}", flush=True)
+          f"ms ({_res(k2b_occ)}) vs plain {k2b_plain_ms:.1f} ms | K0-BVH "
+          f"{k0b_ms:.4f} ms ({_res(k0b_occ)}) vs plain {k0b_plain_ms:.1f} ms | "
+          f"CUDA events; plain: host clock, one run | {card}", flush=True)
     print(f"[15 walk bounds] K1-BVH {k1b_bound[0]:.3f} ms ({k1b_bound[1]}) | "
           f"K2-BVH {k2b_bound[0]:.4f} ms ({k2b_bound[1]}) | K0-BVH "
           f"{k0b_bound[0]:.5f} ms ({k0b_bound[1]})", flush=True)
@@ -1060,33 +1130,34 @@ def main() -> None:
     ref = "raytracingthenextweekcuda_tpu/ops/pallas/"
     walk = f"{ref}bounce_kernel.py:820"  # the consensus walk in _bounce_core
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound, res):
         # No single PyTorch call computes any of these functions: no
         # library time.
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-                "bound_by": bound[1], "library_ms": None}
+                "bound_by": bound[1], "library_ms": None, "ctas_per_sm": res[0],
+                "waves": res[1]}
 
     print(json.dumps({"kernels": [
         entry("K1 render_kernel", "render_kernel.cu", f"{ref}bounce_kernel.py:1466",
-              k1_launches, k1_err, k1_ms, k1_plain_ms, k1_bound),
+              k1_launches, k1_err, k1_ms, k1_plain_ms, k1_bound, k1_occ),
         entry("K1-BVH render_kernel<true>", "render_kernel.cu", walk, k1b_launches,
-              bvh_err["K1"], k1b_ms, k1b_plain_ms, k1b_bound),
+              bvh_err["K1"], k1b_ms, k1b_plain_ms, k1b_bound, k1b_occ),
         entry("K2 path_kernel", "render_kernel.cu", f"{ref}bounce_kernel.py:1392",
-              k2_launches, k2_err, k2_ms, k2p_ms, k2_bound),
+              k2_launches, k2_err, k2_ms, k2p_ms, k2_bound, k2_occ),
         entry("K2-BVH path_kernel<true>", "render_kernel.cu", walk, k2b_launches,
-              bvh_err["K2"], k2b_ms, k2b_plain_ms, k2b_bound),
+              bvh_err["K2"], k2b_ms, k2b_plain_ms, k2b_bound, k2b_occ),
         entry("K0 bounce_kernel", "render_kernel.cu", f"{ref}bounce_kernel.py:1303",
-              k0_launches, k0_err, k0_ms, k0p_ms, k0_bound),
+              k0_launches, k0_err, k0_ms, k0p_ms, k0_bound, k0_occ),
         entry("K0-BVH bounce_kernel<true>", "render_kernel.cu", walk, k0b_launches,
-              bvh_err["K0"], k0b_ms, k0b_plain_ms, k0b_bound),
+              bvh_err["K0"], k0b_ms, k0b_plain_ms, k0b_bound, k0b_occ),
         entry("K3 closest_hit_kernel", "intersect_kernel.cu",
               f"{ref}intersect_kernel.py:443", k3_launches, k3_err, k3_ms, k3p_ms,
-              k3_bound),
+              k3_bound, occ["primary"][0]),
         entry("K4 bvh_winner_kernel", "bvh_winner_kernel.cu",
               f"{ref}bvh_winner_kernel.py:201", k4_launches, k4_err, k4_ms, k4p_ms,
-              k4_bound),
+              k4_bound, occ["primary"][1]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

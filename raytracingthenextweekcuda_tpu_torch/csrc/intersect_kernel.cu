@@ -155,3 +155,14 @@ extern "C" int rtnw_closest_hit(const float* rows, int n_sph, int n_pla,
       alive, n, tmin, t_out, code_out);
   return (int)cudaGetLastError();
 }
+
+// CTAs of K3 resident on one SM at a launch's shared memory, and its
+// threads a CTA.
+extern "C" int rtnw_closest_hit_occupancy(int n_sph, int n_pla, int n_tri,
+                                          int* ctas, int* threads) {
+  const size_t bytes =
+      (size_t)(kSphRows * n_sph + kPlaRows * n_pla + kTriRows * n_tri) * sizeof(float);
+  *threads = kThreads;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, closest_hit_kernel, kThreads, bytes <= (size_t)kSmemLimit ? bytes : 0);
+}

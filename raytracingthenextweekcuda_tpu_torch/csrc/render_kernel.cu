@@ -7,7 +7,9 @@
 //   _trace_sample), launched there by _run_render for render_samples. One
 //   thread renders one pixel: for each sample it generates the thin-lens
 //   primary ray from pcg4d and follows it through up to `bounces` bounces,
-//   summing the radiance in registers and writing it once.
+//   summing the radiance in registers and writing it once. It runs one
+//   loop over bounce steps and regenerates: a lane whose path has ended
+//   starts its pixel's next sample at the next step (see below).
 // - K2 `path_kernel` replaces _path_kernel (_run_path, path_trace): one
 //   thread follows one supplied ray through the whole bounce loop.
 // - K0 `bounce_kernel` replaces _bounce_kernel (_run_bounce, bounce_step):
@@ -40,20 +42,27 @@
 // L2, where the threads of a warp in the same leaf read the same column
 // at the same step (a broadcast); the node arrays are a few KB.
 //
-// A thread of K1 or K2 leaves its bounce loop as soon as its own path
-// dies. The TPU kernels run a 1024-ray block until every ray in it has
-// died; a dead
-// ray's bounce there adds nothing and keeps its state, so the two agree.
+// A thread of K1 or K2 leaves a path as soon as it dies. The TPU kernels
+// run a 1024-ray block until every ray in it has died; a dead ray's bounce
+// there adds nothing and keeps its state, so the two agree.
 // The material kinds are a per-thread switch; for the winning kind it
 // gives what the TPU kernel's branchless select chain gives, including the
 // default (the Lambertian direction, `scattered = kind != EMISSION`).
 //
 // What bounds it on this card: FP32 ALU work (a few hundred operations per
 // primitive column per bounce) and warp divergence (paths of one warp die
-// at different bounces and hit different kinds). Memory traffic is
-// negligible: the packed scene rows are read from shared memory and each
-// pixel writes 12 bytes once. Scene rows at their true counts are copied
-// into shared memory at block start when they fit in 48 KB (Cornell is
+// at different bounces and hit different kinds). Path lengths are very
+// uneven (the Cornell box is open to the sky at the front: a path leaves
+// after a bounce or two, ends at the light, or runs all its bounces). A
+// loop over samples with the bounces inside would run each sample of a
+// warp for as many bounces as its longest path; K1 regenerates instead,
+// so a warp's time is about the largest of its lanes' summed path lengths.
+// The raygen step is then the divergent part, which the waiting lanes of
+// a warp take together. The camera frame sits in shared memory, not in 21
+// registers a thread (it cost 56 bytes of spills there). Memory traffic
+// is negligible: the packed scene rows are read from shared memory and
+// each pixel writes 12 bytes once. Scene rows at their true counts are
+// copied into shared memory at block start when they fit in 48 KB (Cornell is
 // about 10 primitives, under 1 KB); larger scenes (a brute-force mesh pack
 // of ~2.2k Havel columns is ~176 KB) are read from global memory through
 // the read-only cache.
@@ -85,7 +94,12 @@ constexpr int kLambertian = 0, kMetal = 1, kDielectric = 2, kEmission = 3,
 
 constexpr int kFlagSky = 1, kFlagRR = 2, kFlagEmission = 4;
 
+// Threads a CTA: K1's own, and K2's and K0's.
+constexpr int kRenderThreads = 128;
 constexpr int kThreads = 128;
+// Lanes of a K1 warp that wait for a new path before they start it.
+constexpr int kRegenLanes = 4;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSmemLimit = 48 * 1024;
 
 __device__ __forceinline__ float sqrt_f(float x) { return sqrtf(x); }
@@ -572,9 +586,51 @@ __device__ __forceinline__ void bounce_uniforms(uint32_t p, uint32_t b0,
   v0 = to_uniform(c0); v1 = to_uniform(c1); v2 = to_uniform(c2); v3 = to_uniform(c3);
 }
 
-// K1: raygen plus every sample and bounce of one pixel per thread.
+// The thin-lens primary ray of the sample with key words (b0, b1) through
+// pixel p at (xs, ys) (models/camera.raygen), from the 21-float camera
+// frame `f`, and the sample's shutter time.
+__device__ __forceinline__ void primary_ray(const float* f, uint32_t p, float xs,
+                                            float ys, uint32_t b0, uint32_t b1,
+                                            int width, int height, Path& path,
+                                            float& tm) {
+  uint32_t h0 = p, h1 = b0, h2 = 0x9E3779B9u, h3 = b1;
+  pcg4d(h0, h1, h2, h3);
+  float u0 = to_uniform(h0), u1 = to_uniform(h1), u2 = to_uniform(h2),
+        u3 = to_uniform(h3);
+  uint32_t g0 = p, g1 = b0, g2 = 0x85EBCA6Bu, g3 = b1;
+  pcg4d(g0, g1, g2, g3);
+  float u4 = to_uniform(g0);
+  float dxs = (xs + u0) / (float)(width - 1);
+  float dys = (ys + u1) / (float)(height - 1);
+  float lr = sqrt_f(u2);
+  float lphi = kTwoPi * u3;
+  float disk_x = f[18] * lr * cos_f(lphi);
+  float disk_y = f[18] * lr * sin_f(lphi);
+  path.ox = f[0] + disk_x * f[12] + disk_y * f[15];
+  path.oy = f[1] + disk_x * f[13] + disk_y * f[16];
+  path.oz = f[2] + disk_x * f[14] + disk_y * f[17];
+  float dx = f[3] + dxs * f[6] + dys * f[9] - path.ox;
+  float dy = f[4] + dxs * f[7] + dys * f[10] - path.oy;
+  float dz = f[5] + dxs * f[8] + dys * f[11] - path.oz;
+  float nsq = dx * dx + dy * dy + dz * dz;
+  float ninv = nsq > 0.0f ? 1.0f / sqrt_f(nsq) : 0.0f;
+  path.dx = dx * ninv; path.dy = dy * ninv; path.dz = dz * ninv;
+  tm = u4 * (f[20] - f[19]) + f[19];
+  path.tpx = path.tpy = path.tpz = 1.0f;
+  path.rx = path.ry = path.rz = 0.0f;
+}
+
+// K1: raygen plus every sample and bounce of one pixel per thread, with
+// path regeneration: each thread runs one loop over bounce steps and starts
+// its pixel's next sample when its current path has ended, so the lanes of
+// a warp run the bounce body together instead of idling until the longest
+// path of each sample has ended. The raygen step diverges from the bounce,
+// so a warp's lanes without a path start their next samples together, once
+// kRegenLanes of them wait (or no lane has a path). Per pixel the samples,
+// their bounces and the sums are the same arithmetic in the same order as
+// the plain version.
 template <bool kBvh>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRenderThreads)
 render_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
               int nb, int n_floats, int use_smem, MeshArgs mesh,
               const float* __restrict__ frame,
@@ -583,61 +639,54 @@ render_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
               int bounces, int rr_start, float tmin, int flags,
               float* __restrict__ out) {
   extern __shared__ float smem[];
+  __shared__ float f[21];  // the camera frame, out of the threads' registers
+  if (threadIdx.x < 21) f[threadIdx.x] = frame[threadIdx.x];
   const Scene s = load_scene(scene_g, smem, ns, np, nt, nq, nb, n_floats, use_smem,
                              mesh);
+  __syncthreads();  // the frame (load_scene waits only when it stages rows)
+  // Every lane of a warp takes part in its votes: a lane past the last
+  // pixel has no sample to run.
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const bool valid = i < n;
   const Flags fl = decode_flags(flags);
 
-  float f[21];
-#pragma unroll
-  for (int k = 0; k < 21; ++k) f[k] = frame[k];
-
-  const uint32_t p = (uint32_t)pid_g[i];
+  const uint32_t p = valid ? (uint32_t)pid_g[i] : 0u;
   const float xs = (float)(p % (uint32_t)width);
   const float ys = (float)(p / (uint32_t)width);
   float arx = 0.0f, ary = 0.0f, arz = 0.0f;
 
-  for (int smp = 0; smp < n_samples; ++smp) {
-    const uint32_t b0 = words[2 * smp], b1 = words[2 * smp + 1];
-
-    // ---- thin-lens primary ray (models/camera.raygen) ----
-    uint32_t h0 = p, h1 = b0, h2 = 0x9E3779B9u, h3 = b1;
-    pcg4d(h0, h1, h2, h3);
-    float u0 = to_uniform(h0), u1 = to_uniform(h1), u2 = to_uniform(h2),
-          u3 = to_uniform(h3);
-    uint32_t g0 = p, g1 = b0, g2 = 0x85EBCA6Bu, g3 = b1;
-    pcg4d(g0, g1, g2, g3);
-    float u4 = to_uniform(g0);
-    float dxs = (xs + u0) / (float)(width - 1);
-    float dys = (ys + u1) / (float)(height - 1);
-    float lr = sqrt_f(u2);
-    float lphi = kTwoPi * u3;
-    float disk_x = f[18] * lr * cos_f(lphi);
-    float disk_y = f[18] * lr * sin_f(lphi);
-    Path path;
-    path.ox = f[0] + disk_x * f[12] + disk_y * f[15];
-    path.oy = f[1] + disk_x * f[13] + disk_y * f[16];
-    path.oz = f[2] + disk_x * f[14] + disk_y * f[17];
-    float dx = f[3] + dxs * f[6] + dys * f[9] - path.ox;
-    float dy = f[4] + dxs * f[7] + dys * f[10] - path.oy;
-    float dz = f[5] + dxs * f[8] + dys * f[11] - path.oz;
-    float nsq = dx * dx + dy * dy + dz * dz;
-    float ninv = nsq > 0.0f ? 1.0f / sqrt_f(nsq) : 0.0f;
-    path.dx = dx * ninv; path.dy = dy * ninv; path.dz = dz * ninv;
-    const float tm = u4 * (f[20] - f[19]) + f[19];
-    path.tpx = path.tpy = path.tpz = 1.0f;
-    path.rx = path.ry = path.rz = 0.0f;
-
-    for (int b = 0; b < bounces; ++b) {
+  Path path;
+  float tm = 0.0f;
+  uint32_t b0 = 0u, b1 = 0u;
+  int smp = valid && bounces > 0 ? 0 : n_samples;  // the next sample to start
+  int b = 0;
+  bool busy = false;  // a path is under way
+  for (;;) {
+    const bool wait = !busy && smp < n_samples;
+    const unsigned waiting = __ballot_sync(kFull, wait);
+    const unsigned tracing = __ballot_sync(kFull, busy);
+    if (!(waiting | tracing)) break;
+    if (wait && (!tracing || __popc(waiting) >= kRegenLanes)) {
+      b0 = words[2 * smp];
+      b1 = words[2 * smp + 1];
+      primary_ray(f, p, xs, ys, b0, b1, width, height, path, tm);
+      b = 0;
+      busy = true;
+    }
+    if (busy) {
       float v0, v1, v2, v3;
       bounce_uniforms(p, b0, b1, b, v0, v1, v2, v3);
-      if (!bounce<kBvh>(s, path, tm, v0, v1, v2, v3, fl.rr && b >= rr_start, fl,
-                        tmin))
-        break;
+      const bool cont = bounce<kBvh>(s, path, tm, v0, v1, v2, v3,
+                                     fl.rr && b >= rr_start, fl, tmin);
+      ++b;
+      if (!cont || b == bounces) {
+        arx = arx + path.rx; ary = ary + path.ry; arz = arz + path.rz;
+        ++smp;
+        busy = false;
+      }
     }
-    arx = arx + path.rx; ary = ary + path.ry; arz = arz + path.rz;
   }
+  if (!valid) return;
   out[3 * i + 0] = arx;
   out[3 * i + 1] = ary;
   out[3 * i + 2] = arz;
@@ -739,10 +788,10 @@ extern "C" int rtnw_render_samples(const float* scene, int n_sph, int n_pla,
                                    void* stream) {
   const int n_floats = scene_floats(n_sph, n_pla, n_trih, n_quad, n_box);
   const size_t bytes = smem_bytes(n_floats);
-  const int blocks = (n + kThreads - 1) / kThreads;
+  const int blocks = (n + kRenderThreads - 1) / kRenderThreads;
   const MeshArgs mesh{bvh_b, bvh_m, trih, n_nodes, trih_cols, leaf_tile};
   auto kernel = n_nodes > 0 ? render_kernel<true> : render_kernel<false>;
-  kernel<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
+  kernel<<<blocks, kRenderThreads, bytes, (cudaStream_t)stream>>>(
       scene, n_sph, n_pla, n_trih, n_quad, n_box, n_floats, bytes > 0 ? 1 : 0,
       mesh, frame, words, n_samples, pid, n, width, height, bounces, rr_start,
       tmin, flags, out);
@@ -787,6 +836,32 @@ extern "C" int rtnw_bounce_step(const float* scene, int n_sph, int n_pla,
       scene, n_sph, n_pla, n_trih, n_quad, n_box, n_floats, bytes > 0 ? 1 : 0,
       mesh, state, alive, u4, n, do_rr, tmin, flags, out, alive_out);
   return (int)cudaGetLastError();
+}
+
+// CTAs resident on one SM of K1 (kernel 0), K2 (1) or K0 (2), with the
+// tile-BVH walk or without, at a launch's shared memory, and its threads a
+// CTA.
+extern "C" int rtnw_render_occupancy(int kernel, int bvh, int n_sph, int n_pla,
+                                     int n_trih, int n_quad, int n_box, int* ctas,
+                                     int* threads) {
+  const size_t bytes = smem_bytes(scene_floats(n_sph, n_pla, n_trih, n_quad, n_box));
+  const void* fn = nullptr;
+  *threads = kThreads;
+  switch (kernel) {
+    case 0:
+      fn = bvh ? (const void*)render_kernel<true> : (const void*)render_kernel<false>;
+      *threads = kRenderThreads;
+      break;
+    case 1:
+      fn = bvh ? (const void*)path_kernel<true> : (const void*)path_kernel<false>;
+      break;
+    case 2:
+      fn = bvh ? (const void*)bounce_kernel<true> : (const void*)bounce_kernel<false>;
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, fn, *threads, bytes);
 }
 
 extern "C" const char* rtnw_error_string(int err) {

@@ -6,13 +6,15 @@ source, all started together; the objects are linked into one shared
 library with a plain C interface. The library goes into `_build/` beside
 the package (gitignored), named by a hash of the sources and flags, so a
 change to a source rebuilds it and an unchanged tree loads the cached
-file. A failed build or load raises; nothing falls back.
+file; nvcc's report of each source is kept beside it. A failed build or
+load raises; nothing falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import pathlib
 import shutil
@@ -31,8 +33,8 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _LIB: ctypes.CDLL | None = None
 # Seconds the last build of this process took (0.0 when the cached library
-# was loaded) and what nvcc printed for each source, including ptxas's
-# register and spill report for each kernel.
+# was loaded) and what nvcc printed for each source when the library was
+# built, including ptxas's register and spill report for each kernel.
 BUILD_SECONDS = 0.0
 BUILD_LOGS: dict[str, str] = {}
 
@@ -75,8 +77,12 @@ def build() -> pathlib.Path:
     """Compile the sources unless the library for their hash exists."""
     global BUILD_SECONDS
     out = library_path()
+    logs_path = out.with_suffix(".logs.json")
     if out.exists():
         BUILD_SECONDS = 0.0
+        BUILD_LOGS.clear()
+        if logs_path.exists():
+            BUILD_LOGS.update(json.loads(logs_path.read_text()))
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -101,6 +107,7 @@ def build() -> pathlib.Path:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp_out = pathlib.Path(tmp) / out.name
         _run([nvcc, *LINK_FLAGS, "-o", str(tmp_out), *map(str, objs)])
+        logs_path.write_text(json.dumps(logs))
         os.replace(tmp_out, out)
     BUILD_LOGS.clear()
     BUILD_LOGS.update(logs)
@@ -167,13 +174,39 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [
             vp, vp, vp, vp,          # origin, direction, alive (u8), tcap
             ci, vp, vp, vp, ci,      # n_blocks, counts, order, entry, n_leaves
-            vp, vp, vp, vp, ci,      # root, leaf_bounds, leaf_tiles, trih, tile
+            vp, vp, vp,              # root, leaf_bounds, leaf_tiles
+            vp, vp, ci,              # leaf_count, aos rows, leaf buffer width
             cf,                      # tmin
             vp, vp,                  # t out (float*), code out (int32*)
             vp,                      # cudaStream_t
         ]
         fn.restype = ci
+        # CTAs a SM of each kernel at a launch's shared memory.
+        ip = ctypes.POINTER(ci)
+        fn = lib.rtnw_render_occupancy  # K1, K2, K0
+        fn.argtypes = [ci, ci,             # kernel (0 K1, 1 K2, 2 K0), walk
+                       ci, ci, ci, ci, ci,  # n_sph, n_pla, n_trih, n_quad, n_box
+                       ip, ip]             # CTAs a SM, threads a CTA (out)
+        fn.restype = ci
+        fn = lib.rtnw_closest_hit_occupancy  # K3
+        fn.argtypes = [ci, ci, ci, ip, ip]  # n_sph, n_pla, n_tri; CTAs, threads
+        fn.restype = ci
+        fn = lib.rtnw_bvh_winner_occupancy  # K4
+        fn.argtypes = [ci, ip, ip]          # leaf buffer width; CTAs, threads
+        fn.restype = ci
         lib.rtnw_error_string.argtypes = [ci]
         lib.rtnw_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def occupancy(query: str, *args: int) -> tuple[int, int]:
+    """(CTAs resident on one SM, threads a CTA) of a kernel at a launch's
+    shared memory, from its query in the library: `rtnw_render_occupancy`
+    (K1, K2 or K0), `rtnw_closest_hit_occupancy` (K3) or
+    `rtnw_bvh_winner_occupancy` (K4), with that launch's size arguments."""
+    ctas, threads = ctypes.c_int(0), ctypes.c_int(0)
+    err = getattr(load(), query)(*args, ctypes.byref(ctas), ctypes.byref(threads))
+    if err != 0:
+        raise RuntimeError(f"{query} failed: {load().rtnw_error_string(err).decode()}")
+    return ctas.value, threads.value

@@ -12,10 +12,11 @@ raytracingthenextweekcuda_tpu/ops/pallas/bvh_winner_kernel.py).
 2. K4 (csrc/bvh_winner_kernel.cu): per block, walk its list front to back
    up to the block's static horizon (the largest live ray's ceiling: its
    `tcap` capped by its padded root-box exit); for each leaf re-check the
-   slab against each ray's live best t and, if any ray of the block can
-   still improve, scan the leaf's tile of Havel rows. Returns (t, code),
-   code = TYPE_TRIANGLE << 24 | padded triangle column, (BIG, -1) on a
-   miss and for dead rays.
+   slab against each ray's live best t and let the rays that can still
+   improve scan the leaf's real triangles (`LeafScene.leaf_count`, a
+   prefix of its tile), several threads a ray when few need it. Returns
+   (t, code), code = TYPE_TRIANGLE << 24 | padded triangle column, (BIG,
+   -1) on a miss and for dead rays.
 
 `intersect_packed_bvh` is the entry: tensors on a CUDA device launch K4
 (or raise), tensors on the CPU run `winner_reference`, the same walk in
@@ -72,26 +73,50 @@ class LeafScene(NamedTuple):
     trih: torch.Tensor         # (12, L * tile) float32 Havel geometry rows
     root: torch.Tensor         # (6,) float32: union of the leaf boxes
     tile: int                  # triangles per leaf
+    leaf_count: torch.Tensor   # (L,) int32: real columns of each tile (a prefix)
+    aos: torch.Tensor          # (L * tile, 12) float32: trih column by column
+    max_count: int             # the largest leaf_count: K4's leaf buffer width
 
     @property
     def n_leaves(self) -> int:
         return self.leaf_bounds.shape[1]
 
 
+def real_columns(normals: torch.Tensor, first: torch.Tensor,
+                 width: int) -> torch.Tensor:
+    """(C,) int32: the columns of each leaf tile of `width` columns starting
+    at `first` (C,) up to its last one with a nonzero normal in the Havel
+    normal rows `normals` (3, columns). The tiles are filled from the front
+    and zero-padded behind (ops/bvh_tile.py, permute_rows), and a zero
+    normal fails the back-face test, so no column past this count can be
+    hit."""
+    cols = first.to(torch.int64)[:, None] + torch.arange(width, device=first.device)
+    real = (normals[:, cols] != 0).any(dim=0)
+    ends = torch.arange(1, width + 1, device=first.device)
+    return torch.where(real, ends, 0).amax(dim=1).to(torch.int32)
+
+
 def leaf_scene(packed, device) -> LeafScene:
-    """K4's arrays of a tile-BVH pack, on `device`."""
+    """K4's arrays of a tile-BVH pack, on `device`: the leaf boxes and
+    tiles, the Havel geometry rows, each tile's real columns and the rows
+    column by column (16-byte vectors that K4 stages a leaf from)."""
     if packed.leaf_bounds is None:
         raise ValueError("scene packed without a tile-BVH (models.scene.finalize)")
-    lb = torch.from_numpy(packed.leaf_bounds.copy()).to(device)
+    lb = torch.from_numpy(packed.leaf_bounds.copy())
     L = lb.shape[1]
-    root = torch.cat([lb[0:3].amin(dim=1), lb[3:6].amax(dim=1)])
+    tile = packed.trih.shape[1] // L
+    tiles = torch.from_numpy(packed.leaf_tiles.reshape(-1).copy()).to(torch.int32)
+    trih = torch.from_numpy(packed.trih[:HAVEL_GEOM_ROWS].copy())
+    count = real_columns(trih[0:3], tiles, tile)
     return LeafScene(
-        leaf_bounds=lb,
-        leaf_tiles=torch.from_numpy(packed.leaf_tiles.reshape(-1).copy())
-        .to(torch.int32).to(device),
-        trih=torch.from_numpy(packed.trih[:HAVEL_GEOM_ROWS].copy()).to(device),
-        root=root,
-        tile=packed.trih.shape[1] // L,
+        leaf_bounds=lb.to(device),
+        leaf_tiles=tiles.to(device),
+        trih=trih.to(device),
+        root=torch.cat([lb[0:3].amin(dim=1), lb[3:6].amax(dim=1)]).to(device),
+        tile=tile,
+        leaf_count=count.to(device),
+        aos=trih.t().contiguous().to(device),
+        max_count=int(count.max()),
     )
 
 
@@ -262,12 +287,18 @@ def _launch(origin, direction, alive, tcap, wl: WorkList, scene: LeafScene,
                             (scene.root, torch.float32, (6,)),
                             (scene.leaf_bounds, torch.float32, (6, L)),
                             (scene.leaf_tiles, torch.int32, (L,)),
-                            (scene.trih, torch.float32,
-                             (HAVEL_GEOM_ROWS, L * scene.tile))):
+                            (scene.leaf_count, torch.int32, (L,)),
+                            (scene.aos, torch.float32,
+                             (L * scene.tile, HAVEL_GEOM_ROWS))):
         if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
                 or not t.is_contiguous()):
             raise ValueError(f"K4 input {tuple(t.shape)} {t.dtype} on {t.device}: "
                              f"expected contiguous {shape} {dtype} on {dev}")
+    if scene.aos.data_ptr() % 16:
+        raise ValueError("K4 input aos: not aligned to 16 bytes")
+    if not 0 <= scene.max_count <= scene.tile:
+        raise ValueError(f"K4: leaf buffer of {scene.max_count} columns for "
+                         f"tiles of {scene.tile}")
     if n % BLOCK:
         raise ValueError(f"K4: {n} rays is not a multiple of {BLOCK}")
     lib = build.load()
@@ -282,8 +313,9 @@ def _launch(origin, direction, alive, tcap, wl: WorkList, scene: LeafScene,
             tcap.data_ptr(), int(B), wl.counts.data_ptr(), wl.order.data_ptr(),
             wl.entry.data_ptr(), int(L), scene.root.data_ptr(),
             scene.leaf_bounds.data_ptr(), scene.leaf_tiles.data_ptr(),
-            scene.trih.data_ptr(), int(scene.tile), float(tmin),
-            t_out.data_ptr(), code.data_ptr(), stream)
+            scene.leaf_count.data_ptr(), scene.aos.data_ptr(),
+            int(scene.max_count), float(tmin), t_out.data_ptr(),
+            code.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"K4 launch failed: {lib.rtnw_error_string(err).decode()} ({err})")
@@ -357,6 +389,7 @@ def winner_reference(origin, direction, alive, tcap, wl: WorkList,
         node_hit = (tf >= tn) & (tf >= tmin) & (tn < best[sel]) & live[sel]
         need = node_hit.any(dim=1)
         sel, leaf, node_hit = sel[need], leaf[need], node_hit[need]
+        WORK["block_leaves"] += int(sel.numel())
         count_leaves(node_hit.sum(dim=1), leaf_triangles[leaf])
         for c0 in range(0, sel.numel(), _WINNER_CHUNK_BLOCKS):
             cs = sel[c0: c0 + _WINNER_CHUNK_BLOCKS]
@@ -395,4 +428,5 @@ def winner_reference(origin, direction, alive, tcap, wl: WorkList,
 
 __all__ = ["BLOCK", "FRUSTUM_LEAF_THRESHOLD", "KERNEL_LAUNCHES", "LeafScene",
            "WorkList", "build_worklist", "intersect_packed_bvh", "leaf_scene",
-           "use_frustum_worklist", "winner", "winner_inputs", "winner_reference"]
+           "real_columns", "use_frustum_worklist", "winner",
+           "winner_inputs", "winner_reference"]

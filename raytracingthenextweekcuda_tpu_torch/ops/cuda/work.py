@@ -5,16 +5,19 @@ The plain versions of K1, K2 and K0 (ops/cuda/bounce_kernel.py) and of K4
 live path-bounces, the rays' box tests of tile-BVH nodes or leaves, their
 ray-leaf visits and the triangle tests of those visits. A leaf's triangles
 are the columns of its tile with a nonzero normal: the zero padding of a
-tile can never be hit and is not counted. chip_smoke.py sets the counts to
-zero with `reset`, runs a plain version and turns them into the kernel's
-bound.
+tile can never be hit and is not counted. K4's plain version also counts
+the (block, leaf) pairs it evaluates, `block_leaves`: leaf_visits over it
+is the mean number of rays of a block that need a leaf it scans.
+chip_smoke.py sets the counts to zero with `reset`, runs a plain version
+and turns them into the kernel's bound.
 """
 
 from __future__ import annotations
 
 import torch
 
-WORK = {"bounces": 0, "box_tests": 0, "leaf_visits": 0, "triangle_tests": 0}
+WORK = {"bounces": 0, "box_tests": 0, "leaf_visits": 0, "triangle_tests": 0,
+        "block_leaves": 0}
 
 
 def reset() -> None:

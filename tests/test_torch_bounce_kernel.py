@@ -142,6 +142,53 @@ def test_cpu_tensors_take_the_plain_version():
     np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
+def _uneven_inputs(samples, bounces=10):
+    """K1's inputs on Cornell with Russian roulette from bounce 2 and the sky
+    off, where path lengths are most uneven, on the CPU."""
+    scene, camera = tpresets.cornell_box()
+    cfg = RenderConfig(width=12, height=10, spp=samples, bounces=bounces,
+                       russian_roulette=True, rr_start_bounce=2,
+                       sky_background=False)
+    return bk.render_inputs(finalize(scene).packed, tcam.derive(camera, 1.0),
+                            threefry.split(threefry.key(4), samples), cfg,
+                            device="cpu")
+
+
+def test_plain_k1_sums_samples_in_order():
+    """A pixel's radiance is the float32 sum of its samples' paths in sample
+    order, ((s0 + s1) + s2) + s3, bit for bit: the order K1 keeps when a lane
+    regenerates its next sample as soon as its path ends."""
+    inp = _uneven_inputs(4)
+    total = bk.render_reference(inp)
+    acc = torch.zeros_like(total)
+    for s in range(4):
+        one = dataclasses.replace(inp, words=inp.words[s:s + 1])
+        acc = acc + bk.render_reference(one)
+    np.testing.assert_array_equal(total.numpy(), acc.numpy())
+
+
+def test_plain_k1_path_lengths_are_uneven():
+    """On that configuration some paths end at their first bounce and some
+    run all ten (the plain version's bounce count), so a warp that ran
+    each sample to its longest path would idle most of its lanes."""
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import work
+
+    counts = []
+    for bounces in (1, 10):
+        work.reset()
+        bk.render_reference(_uneven_inputs(2, bounces))
+        counts.append(work.WORK["bounces"])
+    paths = 12 * 10 * 2
+    assert counts[0] == paths
+    assert paths < counts[1] < 0.5 * 10 * paths
+
+
+def test_plain_k1_without_bounces_is_black():
+    """bounces = 0 renders zeros (the kernel's step loop never runs)."""
+    out = bk.render_reference(_uneven_inputs(2, bounces=0))
+    assert out.shape == (120, 3) and not out.any()
+
+
 def _small_inputs(device="cpu"):
     scene, camera = tpresets.cornell_box()
     cfg = RenderConfig(width=4, height=4, spp=1, bounces=2)

@@ -1,9 +1,11 @@
 """K1, K2, K0, K3 and K4 against their plain versions on a CUDA card (K1,
-K2 and K0 at rtol = atol = 1e-4, also on tile-BVH packs, K3 and K4 bit for
-bit), and renders (and one backward of the differentiable wavefront and of
-the LBVH regime) on the card against the same on the CPU. These tests skip
-without a card. The file
-imports no jax, so it also runs where JAX is not installed:
+K2 and K0 at rtol = atol = 1e-4, also on tile-BVH packs, and K1 bit for bit
+where path lengths are most uneven; K3 and K4 bit for bit, K4 also for every
+count of rays that need a leaf, on ties and on skipped prefetches), and
+renders (and one backward of the differentiable wavefront and of the LBVH
+regime) on the card against the same on the CPU. These tests skip without
+a card. The file imports no jax, so it also runs where JAX is not
+installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
@@ -299,3 +301,120 @@ def test_lbvh_render_and_gradient_on_card_match_cpu(cuda_device, finalized):
     g_card, g_cpu = grad(cuda_device), grad(torch.device("cpu"))
     assert np.isfinite(g_card) and g_card != 0.0
     np.testing.assert_allclose(g_card, g_cpu, rtol=1e-3, atol=1e-6)
+
+
+def _grid(nx, ny, z, copies=1):
+    """(nx * ny * 2 * copies, 3, 3) triangles of a grid over [-1, 1]^2 at
+    height z, facing +z; `copies` stacks exact duplicates of the grid."""
+    xs, ys = np.linspace(-1, 1, nx + 1), np.linspace(-1, 1, ny + 1)
+    tri = []
+    for i in range(nx):
+        for j in range(ny):
+            a, b = (xs[i], ys[j], z), (xs[i + 1], ys[j], z)
+            c, d = (xs[i + 1], ys[j + 1], z), (xs[i], ys[j + 1], z)
+            tri += [(a, b, c), (a, c, d)]
+    return np.asarray(tri * copies, np.float32)
+
+
+def _k4_case(tri, o, d, alive, device):
+    """K4 and its plain version on the tile-BVH of triangles `tri` for rays
+    (o, d) with `alive`, all on `device`: ((t, code), (t, code), args, leaves)."""
+    from raytracingthenextweekcuda_tpu_torch.config import EPSILON
+    from raytracingthenextweekcuda_tpu_torch.models.scene import SceneBuilder
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+    from raytracingthenextweekcuda_tpu_torch.ops.rays import Rays
+
+    b = SceneBuilder()
+    b.lambertian(0, (0.5, 0.5, 0.5))
+    b.mesh(tri, 0)
+    leaves = k4.leaf_scene(finalize(b.build(), use_bvh=True).packed, device)
+    rays = Rays(torch.from_numpy(o).to(device), torch.from_numpy(d).to(device),
+                torch.zeros(o.shape[0], device=device))
+    args = k4.winner_inputs(rays, leaves, EPSILON, torch.from_numpy(alive).to(device))
+    before = k4.KERNEL_LAUNCHES
+    out = k4.winner(*args, leaves, EPSILON)
+    assert k4.KERNEL_LAUNCHES == before + 1
+    return out, k4.winner_reference(*args, leaves, EPSILON), args, leaves
+
+
+def _down_rays(n, seed, tilt=0.0):
+    """Rays from above the grids toward random points of [-0.9, 0.9]^2."""
+    g = np.random.default_rng(seed)
+    target = np.concatenate([g.uniform(-0.9, 0.9, (n, 2)), np.zeros((n, 1))], 1)
+    o = target + np.concatenate([g.uniform(-tilt, tilt, (n, 2)),
+                                 np.full((n, 1), 2.0)], 1)
+    d = target - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 31, 32, 33, 64, 65, 127, 128])
+def test_k4_matches_plain_by_needing_rays(m, cuda_device):
+    """K4 bit for bit against its plain version on blocks where exactly m
+    rays need the one leaf (the rest are dead), at every split of the CTA's
+    threads over the listed rays (S = 32 down to 1)."""
+    blocks = 8
+    o, d = _down_rays(128 * blocks, seed=m)
+    g = np.random.default_rng(100 + m)
+    alive = np.concatenate([g.permutation(128) < m for _ in range(blocks)])
+    (t, c), (tp, cp), _, leaves = _k4_case(_grid(10, 10, 0.0), o, d, alive,
+                                           cuda_device)
+    assert leaves.n_leaves == 1 and leaves.max_count == 200
+    assert torch.equal(c, cp) and torch.equal(t, tp)
+    assert int((c >= 0).sum()) > 0.9 * alive.sum()
+    assert not (c.cpu().numpy()[~alive] >= 0).any()
+
+
+@pytest.mark.cuda
+def test_k4_ties_match_plain_on_card(cuda_device):
+    """Every triangle twice: each hit is a tie at equal t between two
+    columns, and K4's reduction keeps the lower one, as the plain scan."""
+    o, d = _down_rays(128 * 16, seed=3, tilt=0.3)
+    alive = np.ones(o.shape[0], bool)
+    (t, c), (tp, cp), _, leaves = _k4_case(_grid(10, 10, 0.0, copies=2), o, d,
+                                           alive, cuda_device)
+    assert torch.equal(c, cp) and torch.equal(t, tp)
+    assert leaves.max_count == 400
+    assert int((c >= 0).sum()) > 0.9 * o.shape[0]
+
+
+@pytest.mark.cuda
+def test_k4_skipped_prefetch_matches_plain_on_card(cuda_device):
+    """Six stacked grids in several leaves: a block's list holds the leaves
+    of every layer below its rays, but after the top layer the re-check
+    skips them, so the leaf prefetched behind a scanned one is dropped mid
+    list. K4 still equals its plain version bit for bit."""
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import work
+
+    tri = np.concatenate([_grid(40, 10, -0.25 * k) for k in range(6)])
+    o, d = _down_rays(128 * 32, seed=5, tilt=0.5)
+    alive = np.ones(o.shape[0], bool)
+    work.reset()
+    (t, c), (tp, cp), args, leaves = _k4_case(tri, o, d, alive, cuda_device)
+    assert leaves.n_leaves >= 3
+    assert torch.equal(c, cp) and torch.equal(t, tp)
+    walked = work.WORK["box_tests"] // 128  # every ray of every block is live
+    assert work.WORK["block_leaves"] < walked
+    assert float(args[4].counts.float().mean()) >= 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_bvh", [False, True], ids=["boxes", "walk"])
+def test_k1_uneven_paths_match_plain_on_card(use_bvh, cuda_device):
+    """K1 with path regeneration against its plain version where path
+    lengths are most uneven (Cornell, Russian roulette from bounce 2, the
+    sky off), without and with the tile-BVH walk: equal bit for bit."""
+    scene, camera = tpresets.cornell_box()
+    scene = finalize(scene, use_bvh=use_bvh)
+    cfg = RenderConfig(width=64, height=64, spp=4, bounces=10, spp_per_pass=4,
+                       russian_roulette=True, rr_start_bounce=2,
+                       sky_background=False)
+    inp = bk.render_inputs(scene.packed, tcam.derive(camera, 1.0),
+                           threefry.split(threefry.key(9), 4), cfg,
+                           device=cuda_device)
+    assert (inp.trih is not None) == use_bvh
+    before = bk.KERNEL_BVH_LAUNCHES
+    k1 = bk.render_kernel(inp).cpu().numpy()
+    assert bk.KERNEL_BVH_LAUNCHES == before + use_bvh
+    np.testing.assert_array_equal(k1, bk.render_reference(inp).cpu().numpy())

@@ -28,7 +28,11 @@ from raytracingthenextweekcuda_tpu_torch.config import EPSILON, RenderConfig
 from raytracingthenextweekcuda_tpu_torch.models import camera as tcam
 from raytracingthenextweekcuda_tpu_torch.models import integrator
 from raytracingthenextweekcuda_tpu_torch.models import presets as tpresets
-from raytracingthenextweekcuda_tpu_torch.models.scene import finalize, from_jax_arrays
+from raytracingthenextweekcuda_tpu_torch.models.scene import (
+    SceneBuilder,
+    finalize,
+    from_jax_arrays,
+)
 from raytracingthenextweekcuda_tpu_torch.ops import threefry
 from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
 from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
@@ -267,6 +271,169 @@ def test_k4_plain_counts_its_work(mesh_wavefronts):
             <= counts["leaf_visits"] * int(per_leaf.max()))
 
 
+def test_k4_plain_counts_block_leaves(mesh_wavefronts):
+    """The plain K4 counts the (block, leaf) pairs it evaluates: every pair
+    has at least one and at most BLOCK rays that enter the leaf, so the
+    mean needing rays a pair, leaf_visits / block_leaves, lies in [1, 128]."""
+    _, _, ds, fronts = mesh_wavefronts
+    for _, o, d, tm, alive, tcap in fronts:
+        work.reset()
+        k4.intersect_packed_bvh(Rays(torch.from_numpy(o), torch.from_numpy(d),
+                                     torch.from_numpy(tm)), ds.leaves, EPSILON,
+                                alive=torch.from_numpy(alive),
+                                t_cap=torch.from_numpy(tcap))
+        pairs, visits = work.WORK["block_leaves"], work.WORK["leaf_visits"]
+        assert 0 < pairs <= visits <= k4.BLOCK * pairs
+
+
+# ---- K4's leaf layout: real columns and the staging copy --------------------
+
+def _uneven_mesh():
+    """Two clumps of a triangle soup, 1,100 and 300 triangles: the tile-BVH
+    cuts leaves of different fill."""
+    g = np.random.default_rng(9)
+    tri = np.concatenate([
+        g.uniform(-2, 0, (1100, 1, 3)) + g.uniform(-0.2, 0.2, (1100, 3, 3)),
+        g.uniform(1, 2, (300, 1, 3)) + g.uniform(-0.2, 0.2, (300, 3, 3))])
+    b = SceneBuilder()
+    b.lambertian(0, (0.5, 0.5, 0.5))
+    b.mesh(tri.astype(np.float32), 0)
+    return b.build()
+
+
+def _leaf_mesh(name):
+    """(finalized scene, LeafScene on the CPU) of a stand-in or the uneven
+    soup."""
+    from raytracingthenextweekcuda_tpu_torch.apps import bench_scenes
+
+    if name == "uneven":
+        scene = _uneven_mesh()
+    else:
+        scene = getattr(bench_scenes, f"{name}_mesh_scene")()[0]
+    scene = finalize(scene, use_bvh=True)
+    return scene, k4.leaf_scene(scene.packed, "cpu")
+
+
+LEAF_MESHES = ["published", "stress", "uneven"]
+
+
+@pytest.mark.parametrize("name", LEAF_MESHES)
+def test_leaf_count_is_the_real_prefix(name):
+    """leaf_count is each tile's count of real triangles (those with a
+    nonzero normal, work.tile_triangles), and they fill the tile from the
+    front: the slots before the count hold triangles of the mesh, the rest
+    are padding with all 12 geometry rows zero."""
+    scene, leaves = _leaf_mesh(name)
+    count = leaves.leaf_count
+    assert count.dtype == torch.int32 and count.shape == (leaves.n_leaves,)
+    np.testing.assert_array_equal(
+        count.numpy(), work.tile_triangles(leaves.trih[0:3], leaves.leaf_tiles,
+                                           leaves.tile).numpy())
+    assert leaves.max_count == int(count.max()) <= leaves.tile
+    real = np.asarray(scene.triangles.mesh_id) >= 0
+    trih = leaves.trih.numpy()
+    for first, c in zip(leaves.leaf_tiles.tolist(), count.tolist()):
+        assert real[first: first + c].all()
+        assert not real[first + c: first + leaves.tile].any()
+        assert not trih[:, first + c: first + leaves.tile].any()
+    assert int(count.sum()) == int(real.sum())
+    if name == "uneven":
+        assert len(set(count.tolist())) > 1
+
+
+@pytest.mark.parametrize("name", LEAF_MESHES)
+def test_aos_copy_holds_the_havel_rows(name):
+    """K4's staging copy: column c of the tiles is row c of `aos`, the 12
+    Havel geometry rows in order (n.xyz dc, e1p d1, e2p d2: three 16-byte
+    vectors), for every real column."""
+    _, leaves = _leaf_mesh(name)
+    assert leaves.aos.shape == (leaves.n_leaves * leaves.tile, k4.HAVEL_GEOM_ROWS)
+    assert leaves.aos.dtype == torch.float32 and leaves.aos.is_contiguous()
+    cols = torch.cat([torch.arange(f, f + c) for f, c in
+                      zip(leaves.leaf_tiles.tolist(), leaves.leaf_count.tolist())])
+    np.testing.assert_array_equal(leaves.aos[cols].numpy(),
+                                  leaves.trih[:, cols].t().numpy())
+
+
+def test_real_columns_end_at_the_last_normal():
+    """A zero column inside a tile stays in the count (only the trailing
+    zero columns are cut); an empty tile counts 0."""
+    normals = torch.zeros((3, 12))
+    normals[2, [0, 2, 4, 5, 9]] = 1.0
+    count = k4.real_columns(normals, torch.tensor([0, 4, 8], dtype=torch.int32), 4)
+    assert count.tolist() == [3, 2, 2]
+    empty = k4.real_columns(normals, torch.tensor([6], dtype=torch.int32), 2)
+    assert empty.tolist() == [0]
+
+
+def _tie_scene():
+    """A 20-triangle fan facing +z plus an exact duplicate of triangle 7:
+    one leaf, where the two copies meet every ray at the same t."""
+    b = SceneBuilder()
+    b.lambertian(0, (0.5, 0.5, 0.5))
+    ang = np.linspace(0.0, 2 * np.pi, 21)
+    tri = np.zeros((21, 3, 3), np.float32)
+    tri[:20, 1, 0], tri[:20, 1, 1] = np.cos(ang[:-1]), np.sin(ang[:-1])
+    tri[:20, 2, 0], tri[:20, 2, 1] = np.cos(ang[1:]), np.sin(ang[1:])
+    tri[20] = tri[7]
+    b.mesh(tri, 0)
+    return finalize(b.build(), use_bvh=True), tri[7]
+
+
+def test_k4_plain_tie_takes_the_lower_column():
+    """Equal t at two columns: the plain K4 (like the sequential scan)
+    returns the lower column, the tie rule K4's lexicographic reduction
+    keeps."""
+    scene, dup = _tie_scene()
+    leaves = k4.leaf_scene(scene.packed, "cpu")
+    assert leaves.n_leaves == 1
+    verts = np.asarray(scene.triangles.vertices)
+    cols = np.flatnonzero((verts == dup).all(axis=(1, 2)))
+    assert cols.size == 2
+    g = np.random.default_rng(4)
+    n = 256
+    bary = g.dirichlet((1.0, 1.0, 1.0), n).astype(np.float32)
+    target = bary @ dup
+    jitter = g.uniform(-0.05, 0.05, (n, 3)).astype(np.float32)
+    o = target + np.float32([0.0, 0.0, 2.0]) + jitter
+    d = target - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = Rays(torch.from_numpy(o), torch.from_numpy(d.astype(np.float32)),
+                torch.zeros(n))
+    # The fan faces +z, so rays from above meet its front faces.
+    t, code = k4.intersect_packed_bvh(rays, leaves, EPSILON)
+    hit = code.numpy() == ((k3.TYPE_TRIANGLE << 24) | int(cols[0]))
+    assert not (code.numpy() == ((k3.TYPE_TRIANGLE << 24) | int(cols[1]))).any()
+    assert hit.mean() > 0.9
+
+
+def test_k4_plain_on_cut_tiles_equals_full_tiles(mesh_wavefronts):
+    """The plain K4 on tiles cut to their real columns (max_count wide)
+    equals it on the full 768-column tiles, column for column: the padding
+    K4 no longer scans can never win."""
+    _, _, ds, fronts = mesh_wavefronts
+    full = ds.leaves
+    w = full.max_count
+    assert w < full.tile
+    cols = (full.leaf_tiles.to(torch.int64)[:, None] + torch.arange(w)).flatten()
+    trih = full.trih[:, cols].contiguous()
+    cut = full._replace(trih=trih, tile=w,
+                        leaf_tiles=torch.arange(full.n_leaves, dtype=torch.int32) * w,
+                        aos=trih.t().contiguous())
+    for _, o, d, tm, alive, tcap in fronts:
+        rays = Rays(torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tm))
+        a, c = torch.from_numpy(alive), torch.from_numpy(tcap)
+        t0, c0 = k4.intersect_packed_bvh(rays, full, EPSILON, alive=a, t_cap=c)
+        t1, c1 = k4.intersect_packed_bvh(rays, cut, EPSILON, alive=a, t_cap=c)
+        np.testing.assert_array_equal(t0.numpy(), t1.numpy())
+        hit = c1 >= 0
+        assert int(hit.sum()) > 0
+        back = cols[(c1[hit] & 0xFFFFFF).to(torch.int64)].to(torch.int32)
+        np.testing.assert_array_equal(c0[hit].numpy(),
+                                      ((k3.TYPE_TRIANGLE << 24) | back).numpy())
+        np.testing.assert_array_equal(c0[~hit].numpy(), c1[~hit].numpy())
+
+
 # ---- device rules ----------------------------------------------------------
 
 def test_launches_check_their_inputs():
@@ -282,6 +449,15 @@ def test_launches_check_their_inputs():
     bad = (args[0], args[1], args[2].to(torch.uint8), args[3], args[4])
     with pytest.raises(ValueError, match="K4 input"):
         k4._launch(*bad, leaves, EPSILON)
+    for bad_leaves in (leaves._replace(leaf_count=leaves.leaf_count.long()),
+                       leaves._replace(leaf_count=leaves.leaf_count[:-1]),
+                       leaves._replace(aos=leaves.aos.t()),
+                       leaves._replace(aos=leaves.aos[:, :9].contiguous()),
+                       leaves._replace(aos=leaves.aos.double())):
+        with pytest.raises(ValueError, match="K4 input"):
+            k4._launch(*args, bad_leaves, EPSILON)
+    with pytest.raises(ValueError, match="leaf buffer"):
+        k4._launch(*args, leaves._replace(max_count=leaves.tile + 1), EPSILON)
 
 
 def test_launch_without_nvcc_raises(tmp_path, monkeypatch):
