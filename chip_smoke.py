@@ -8,8 +8,8 @@ Phases, each printing one line or more:
      without the tile-BVH walk), K3 (csrc/intersect_kernel.cu) and K4
      (csrc/bvh_winner_kernel.cu) with nvcc, one process per source;
      ptxas's registers and spills per kernel, K1 without the walk held at
-     K1_REGS registers and K1_SPILL bytes of spills or fewer; the tile-BVH
-     builder;
+     K1_REGS registers and K1_SPILL bytes of spills or fewer, beside those
+     of K1, K2 and K0 with the walk; the tile-BVH builder;
   3. K1 vs plain: K1 against its plain torch version on the same CUDA
      tensors, 5 presets at 64x64, 4 spp, 6 bounces, plus Cornell with
      Russian roulette and with the sky off (rtol = atol = 1e-4; smallpt by
@@ -38,8 +38,9 @@ Phases, each printing one line or more:
      leaf (leaf visits over pairs) and the threads a ray that mean gives;
  10. K2 and K0 vs plain: K2 against its plain version on the same CUDA
      tensors on the Cornell primary wavefront (512x512, one sample, 10
-     bounces) and on the 5 presets at 64x64 (smallpt by the statistical
-     rule), K0 for one bounce with do_rr 0 and 1 (rtol = atol = 1e-4); then
+     bounces, about two rays a lane of its persistent grid) and on the 5
+     presets at 64x64, bit for bit; K0 for one bounce with do_rr 0 and 1
+     (rtol = atol = 1e-4); then
      K0's main path, a wavefront traced by ten bounce_step calls, counting
      K0's launches, against K2 on the same rays (1e-4);
  11. G-buffer main path: render_gbuffer on Cornell (512x512, 8 spp, 10
@@ -60,15 +61,18 @@ Phases, each printing one line or more:
  14. the tile-BVH walk vs plain: K1, K2 and K0 on the tile-BVH packs of
      both mesh stand-ins (2 and 32 leaves of 768) against their plain
      versions, which walk the tree as one consensus block (128x128,
-     Russian roulette on; rtol = atol = 1e-4, 0 expected);
+     Russian roulette on), bit for bit;
  15. the walk's main paths, with the sorted engine turned off as the
      reference's cross-engine check does: the mesh benchmark (published
      stand-in, 512x512, 32 spp, 10 bounces) through integrator.render and
      K1, held against phase 8's sorted image (1e-4 but for at most 1 in
      10^4 values, means at 1e-4), counting K1's launches; a 512x512 G-buffer
      through K2, its radiance against render_pass through K1; ten
-     bounce_step calls through K0 against K2 on the same rays; then the
-     three kernels' times beside their plain versions' and their bounds;
+     bounce_step calls through K0 against K2 on the same rays; the forced
+     render's host time beside a sorted render's, back to back; then the
+     three kernels' times beside their plain versions' and their bounds
+     (bit for bit against them), and K1-BVH's time and bound on the
+     stress stand-in too;
  16. the LBVH regime: the published stand-in unfinalized with an LBVH
      over its mesh (the walk in torch takes the brute-force triangle
      test's place), rendered at 128x128 on the card against the CPU
@@ -234,8 +238,10 @@ def _bound(nbytes: float, ops32: float, ops64: float = 0.0) -> tuple:
 
 def _scene_bytes(inp) -> int:
     """The bytes of the bounce kernels' scene inputs: the packed rows and,
-    on a tile-BVH pack, the node arrays and the Havel rows."""
-    extra = (inp.bvh_bounds, inp.bvh_meta, inp.trih) if inp.trih is not None else ()
+    on a tile-BVH pack, the node arrays, the Havel rows and their column
+    vectors."""
+    extra = ((inp.bvh_bounds, inp.bvh_meta, inp.bvh_count, inp.trih, inp.trih_aos)
+             if inp.trih is not None else ())
     return sum(t.numel() * t.element_size() for t in (inp.scene, *extra))
 
 
@@ -295,19 +301,40 @@ def _step_bound(inp, counts) -> tuple:
                   *_bounce_ops(inp, counts))
 
 
-def _residency(query: str, args: tuple, n: int) -> tuple:
+def _residency(query: str, args: tuple, n: int, persistent: bool = False) -> tuple:
     """(CTAs resident on one SM, waves) of a kernel's launch over `n` rays
     or pixels, one a thread (K4: one 128-ray block a CTA, the same count),
-    from the kernel's occupancy query at the launch's shared memory."""
+    from the kernel's occupancy query at the launch's shared memory. A
+    persistent grid (K2) launches at most one wave and loops over its rays:
+    its waves are its CTAs over the resident ones, and its rays a thread
+    are a third value."""
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
 
     ctas, threads = build.occupancy(query, *args)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return ctas, -(-n // threads) / (ctas * sms)
+    fill = -(-n // threads)
+    if persistent:
+        grid = min(fill, ctas * sms)
+        return ctas, grid / (ctas * sms), n / (grid * threads)
+    return ctas, fill / (ctas * sms)
 
 
 def _res(occ: tuple) -> str:
-    return f"{occ[0]} CTAs a SM, {occ[1]:.2f} waves"
+    rays = f", {occ[2]:.2f} rays a thread" if len(occ) > 2 else ""
+    return f"{occ[0]} CTAs a SM, {occ[1]:.2f} waves{rays}"
+
+
+def _check_same(name, out, plain) -> float:
+    """A kernel's output against its plain version's: finite, of the same
+    shape, equal bit for bit. Returns max |diff|, 0.0."""
+    out, plain = out.cpu().numpy(), plain.cpu().numpy()
+    if out.shape != plain.shape or not np.isfinite(out).all():
+        raise AssertionError(f"{name}: output not finite or misshapen")
+    if not np.array_equal(out, plain):
+        diff = np.abs(out.astype(np.float64) - plain.astype(np.float64))
+        raise AssertionError(f"{name}: {int((diff > 0).sum())} values differ, "
+                             f"max |diff| {float(diff.max())}")
+    return 0.0
 
 
 def _check_close(name, out, plain, smallpt=False) -> float:
@@ -377,16 +404,19 @@ def main() -> None:
     # K1 without the tile-BVH walk: at most K1_REGS registers and K1_SPILL
     # bytes of spills.
     regs_spills = {}
-    for entry in ("render_kernel<false>", "render_kernel<true>"):
-        line = ptxas_lines.get(entry, "")
-        regs = re.search(r"Used (\d+) registers", line)
-        spill = re.search(r"(\d+) bytes spill stores", line)
-        if not (regs and spill):
-            raise AssertionError(f"no ptxas registers and spills for K1 {entry}")
-        regs_spills[entry] = (int(regs.group(1)), int(spill.group(1)))
+    for kernel in ("render_kernel", "path_kernel", "bounce_kernel"):
+        for entry in (f"{kernel}<false>", f"{kernel}<true>"):
+            line = ptxas_lines.get(entry, "")
+            regs = re.search(r"Used (\d+) registers", line)
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            if not (regs and spill):
+                raise AssertionError(f"no ptxas registers and spills for {entry}")
+            regs_spills[entry] = (int(regs.group(1)), int(spill.group(1)))
     print(f"[2 build] K1 registers, spill bytes: without the tile-BVH walk "
           f"{regs_spills['render_kernel<false>']}, with it "
-          f"{regs_spills['render_kernel<true>']}", flush=True)
+          f"{regs_spills['render_kernel<true>']} | with the walk: K2 "
+          f"{regs_spills['path_kernel<true>']}, K0 "
+          f"{regs_spills['bounce_kernel<true>']}", flush=True)
     regs, spill = regs_spills["render_kernel<false>"]
     if regs > K1_REGS or spill > K1_SPILL:
         raise AssertionError(f"K1 without the walk: {regs} registers and {spill} "
@@ -635,10 +665,10 @@ def main() -> None:
     path_inp = bk.path_inputs(cornell.packed, rays, ctx, head)
     k2_out = bk.path_kernel(path_inp)
     work.reset()
-    k2_err = _check_close("K2 cornell 512x512", k2_out, bk.path_reference(path_inp))
+    k2_err = _check_same("K2 cornell 512x512", k2_out, bk.path_reference(path_inp))
     k2_bound = _path_bound(path_inp, work.WORK)
     print(f"[10 K2 vs plain] cornell primary wavefront 512x512, 1 sample, 10 "
-          f"bounces: max|diff| {k2_err:.3e} (rtol=atol=1e-4) mean "
+          f"bounces: max|diff| {k2_err:.3e} (bit for bit) mean "
           f"{float(k2_out.mean()):.6f}", flush=True)
     for case, preset, _ in cases[:5]:
         scene, pcam = preset()
@@ -647,12 +677,11 @@ def main() -> None:
         prays, pctx = cam.generate_rays(cam.derive(pcam, 1.0),
                                         threefry.split(threefry.key(7), 1)[0],
                                         64, 64, device=dev)
-        err = _check_close(f"K2 {case}", bk.path_trace(scene.packed, prays, pctx, cfg),
-                           bk.path_trace_reference(scene.packed, prays, pctx, cfg),
-                           smallpt=case == "smallpt")
+        err = _check_same(f"K2 {case}", bk.path_trace(scene.packed, prays, pctx, cfg),
+                          bk.path_trace_reference(scene.packed, prays, pctx, cfg))
         k2_err = max(k2_err, err)
-        print(f"[10 K2 vs plain] {case} 64x64, 10 bounces: max|diff| {err:.3e}",
-              flush=True)
+        print(f"[10 K2 vs plain] {case} 64x64, 10 bounces: max|diff| {err:.3e} "
+              f"(bit for bit)", flush=True)
 
     rr_cfg = dataclasses.replace(head, russian_roulette=True, rr_start_bounce=0)
     state = bk.planar_state(rays)
@@ -836,7 +865,7 @@ def main() -> None:
     bwd_ms, _ = _host_ms(lambda: depth_grad(dev, 512, with_radiance=True))
     peak_gib = (torch.cuda.max_memory_allocated(dev) - base_mem) / 2**30
     k2_occ = _residency("rtnw_render_occupancy", (1, 0, *path_inp.counts),
-                        path_inp.pid.numel())
+                        path_inp.pid.numel(), persistent=True)
     k0_occ = _residency("rtnw_render_occupancy", (2, 0, *k0_inp.counts),
                         k0_inp.alive.numel())
     print(f"[13 times] K2 {k2_ms:.4f} ms vs plain {k2p_ms:.1f} ms (cornell "
@@ -863,13 +892,13 @@ def main() -> None:
         frame = cam.derive(mcam, small.aspect_ratio)
         words = threefry.split(threefry.key(11), small.spp)
         inp = bk.render_inputs(scene.packed, frame, words, small, device=dev)
-        e1 = _check_close(f"K1-BVH {label}", bk.render_kernel(inp),
-                          bk.render_reference(inp))
+        e1 = _check_same(f"K1-BVH {label}", bk.render_kernel(inp),
+                         bk.render_reference(inp))
         rays, ctx = cam.generate_rays(frame, words[0], small.width, small.height,
                                       device=dev)
-        e2 = _check_close(f"K2-BVH {label}",
-                          bk.path_trace(scene.packed, rays, ctx, small),
-                          bk.path_trace_reference(scene.packed, rays, ctx, small))
+        e2 = _check_same(f"K2-BVH {label}",
+                         bk.path_trace(scene.packed, rays, ctx, small),
+                         bk.path_trace_reference(scene.packed, rays, ctx, small))
         state = bk.bounce_step_reference(
             scene.packed, bk.planar_state(rays),
             rng.bounce_uniforms(ctx.pixel_id, ctx.base0, ctx.base1, 0), 0, small)
@@ -880,8 +909,8 @@ def main() -> None:
             plain = bk.bounce_step_reference(scene.packed, state, u4, do_rr, small)
             if not torch.equal(k0[7], plain[7]):
                 raise AssertionError(f"K0-BVH {label} do_rr={do_rr}: alive flags differ")
-            e0 = max([e0] + [_check_close(f"K0-BVH {label} do_rr={do_rr} row {r}",
-                                          k0[r], plain[r]) for r in range(14)])
+            e0 = max([e0] + [_check_same(f"K0-BVH {label} do_rr={do_rr} row {r}",
+                                         k0[r], plain[r]) for r in range(14)])
         for k, e in zip(("K1", "K2", "K0"), (e1, e2, e0)):
             bvh_err[k] = max(bvh_err[k], e)
         print(f"[14 BVH kernels vs plain] {label} stand-in ("
@@ -889,13 +918,16 @@ def main() -> None:
               f"{scene.packed.leaf_tiles.shape[1]} leaves of {inp.leaf_tile}), "
               f"128x128, RR from bounce 3: K1 (2 spp, 6 bounces) max|diff| {e1:.3e}"
               f" | K2 (one sample) {e2:.3e} | K0 (bounce 2, do_rr 0 and 1) "
-              f"{e0:.3e} (rtol=atol=1e-4)", flush=True)
+              f"{e0:.3e} (bit for bit)", flush=True)
 
     # 15. the main paths of the tile-BVH walk: the mesh benchmark's render
     # through K1 and a G-buffer through K2, with the sorted engine turned
     # off as the reference's cross-engine check does, and ten bounce_step
     # calls through K0
     mesh, mcam = meshes["published"]
+    # A sorted render of the same configuration just before the forced one,
+    # so that the two host times come from the same moment of the call.
+    sorted_ms, _ = _host_ms(lambda: integrator.render(mesh, mcam, mesh_cfg, device=dev))
     sorted_eligible = integrator._sorted_eligible
     integrator._sorted_eligible = lambda *_: False
     try:
@@ -917,8 +949,9 @@ def main() -> None:
         np.testing.assert_allclose(forced.mean(), sorted_mesh.mean(), rtol=1e-4)
         print(f"[15 K1-BVH main path] published stand-in 512x512, 32 spp, 10 "
               f"bounces, passes of 16, through integrator.render: "
-              f"{k1b_render_ms:.1f} ms host ({mesh_result['render_ms']:.1f} ms "
-              f"sorted) | K1 launches {k1b_launches}, all with the walk | vs the "
+              f"{k1b_render_ms:.1f} ms host, against {sorted_ms:.1f} ms sorted "
+              f"just before it (phase 8's bench: {mesh_result['render_ms']:.1f} ms)"
+              f" | K1 launches {k1b_launches}, all with the walk | vs the "
               f"sorted wavefront: {int(off.sum())} of {off.size} values apart by "
               f"> 1e-4 (max {float(np.abs(forced - sorted_mesh).max()):.3e}), means"
               f" {float(forced.mean()):.6f} vs {float(sorted_mesh.mean()):.6f} | "
@@ -979,13 +1012,13 @@ def main() -> None:
     k1b_plain_ms *= pass_spp
     k1b_bound = _render_bound(inp, work.WORK, pass_spp)
     work_1spp = dict(work.WORK)
-    bvh_err["K1"] = max(bvh_err["K1"], _check_close(
+    bvh_err["K1"] = max(bvh_err["K1"], _check_same(
         "K1-BVH 512x512 1 spp", bk.render_kernel(sub), plain))
     k2b_ms = _event_ms(lambda: bk.path_kernel(mpath), reps=5)
     work.reset()
     k2b_plain_ms, plain = _host_ms(lambda: bk.path_reference(mpath))
     k2b_bound = _path_bound(mpath, work.WORK)
-    bvh_err["K2"] = max(bvh_err["K2"], _check_close("K2-BVH 512x512", k2b_out, plain))
+    bvh_err["K2"] = max(bvh_err["K2"], _check_same("K2-BVH 512x512", k2b_out, plain))
     state = bk.bounce_step_reference(
         mesh.packed, bk.planar_state(mrays),
         rng.bounce_uniforms(mctx.pixel_id, mctx.base0, mctx.base1, 0), 0, rr_cfg)
@@ -999,11 +1032,11 @@ def main() -> None:
     k0b = bk.bounce_kernel(k0b_inp)
     if not torch.equal(k0b[1], plain[1]):
         raise AssertionError("K0-BVH 512x512: alive flags differ")
-    bvh_err["K0"] = max(bvh_err["K0"], _check_close("K0-BVH 512x512", k0b[0], plain[0]))
+    bvh_err["K0"] = max(bvh_err["K0"], _check_same("K0-BVH 512x512", k0b[0], plain[0]))
     k1b_occ = _residency("rtnw_render_occupancy", (0, 1, *inp.counts),
                          inp.pid.numel())
     k2b_occ = _residency("rtnw_render_occupancy", (1, 1, *mpath.counts),
-                         mpath.pid.numel())
+                         mpath.pid.numel(), persistent=True)
     k0b_occ = _residency("rtnw_render_occupancy", (2, 1, *k0b_inp.counts),
                          k0b_inp.alive.numel())
     print(f"[15 walk times] K1-BVH {k1b_ms:.3f} ms a 16-spp pass ({_res(k1b_occ)})"
@@ -1017,6 +1050,29 @@ def main() -> None:
     print(f"[15 walk bounds] K1-BVH {k1b_bound[0]:.3f} ms ({k1b_bound[1]}) | "
           f"K2-BVH {k2b_bound[0]:.4f} ms ({k2b_bound[1]}) | K0-BVH "
           f"{k0b_bound[0]:.5f} ms ({k0b_bound[1]})", flush=True)
+    # K1-BVH on the stress stand-in (32 leaves, a tree with depth): one
+    # 16-spp pass of its camera at the mesh benchmark's configuration, its
+    # bound from the plain version's work at 1 spp, scaled.
+    stress, scam = meshes["stress"]
+    sframe = cam.derive(scam, mesh_cfg.aspect_ratio)
+    sinp = bk.render_inputs(stress.packed, sframe, words, mesh_cfg, device=dev)
+    k1s_ms = _event_ms(lambda: bk.render_kernel(sinp), reps=2)
+    ssub = bk.render_inputs(stress.packed, sframe, words[:1], mesh_cfg, device=dev)
+    work.reset()
+    k1s_plain_ms, plain = _host_ms(lambda: bk.render_reference(ssub))
+    k1s_bound = _render_bound(sinp, work.WORK, pass_spp)
+    bvh_err["K1"] = max(bvh_err["K1"], _check_same(
+        "K1-BVH stress 512x512 1 spp", bk.render_kernel(ssub), plain))
+    k1s_occ = _residency("rtnw_render_occupancy", (0, 1, *sinp.counts),
+                         sinp.pid.numel())
+    print(f"[15 walk times] stress stand-in ({stress.packed.leaf_tiles.shape[1]} "
+          f"leaves): K1-BVH {k1s_ms:.3f} ms a 16-spp pass ({_res(k1s_occ)}) vs "
+          f"plain {k1s_plain_ms * pass_spp:.1f} ms (1 spp x16; its work: "
+          f"{work.WORK['bounces']} path-bounces, {work.WORK['box_tests']} node "
+          f"tests, {work.WORK['leaf_visits']} leaf visits, "
+          f"{work.WORK['triangle_tests']} triangle tests), bound "
+          f"{k1s_bound[0]:.3f} ms ({k1s_bound[1]}); bit for bit at 1 spp | "
+          f"{card}", flush=True)
 
     # 16. the LBVH regime. On an unfinalized scene the LBVH walk takes the
     # place of the brute-force triangle test, so the render and its

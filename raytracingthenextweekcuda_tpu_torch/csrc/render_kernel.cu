@@ -10,8 +10,9 @@
 //   summing the radiance in registers and writing it once. It runs one
 //   loop over bounce steps and regenerates: a lane whose path has ended
 //   starts its pixel's next sample at the next step (see below).
-// - K2 `path_kernel` replaces _path_kernel (_run_path, path_trace): one
-//   thread follows one supplied ray through the whole bounce loop.
+// - K2 `path_kernel` replaces _path_kernel (_run_path, path_trace): it
+//   follows supplied rays through the whole bounce loop on a persistent
+//   grid and regenerates as K1 does (see below).
 // - K0 `bounce_kernel` replaces _bounce_kernel (_run_bounce, bounce_step):
 //   one thread advances one ray of the planar carry by one bounce, on
 //   uniforms read from memory.
@@ -24,23 +25,39 @@
 // true; the other instantiation compiles the walk away, as the TPU kernel
 // does with n_bvh_nodes = 0. It replaces the TPU kernel's block-consensus
 // skip-pointer walk (_bounce_core, bounce_kernel.py:820-1044), which
-// visits a node when any ray of a 1024-ray block hits its box, tests a
-// leaf's tile for the rows whose rays hit it, and resolves the winners'
-// attributes in a second sweep: the consensus, the per-row `any` and the
-// sweep exist because a TPU block shares scalar control flow. Here each
-// thread walks the same DFS node order alone, without a stack: on a box
-// hit it descends to node + 1 (a leaf tests its `leaf_tile` Havel
-// columns, strict t < best, the lowest column among equal t), else it
-// jumps to the node's skip pointer. A child's box lies inside its
-// parent's and the slab arithmetic rounds monotonically in the bounds, so
-// a ray that misses a box misses all it holds: the thread meets the
-// leaves, the best t and the winner that the block walk gives this ray.
-// The winner's normal and material rows are read from its column.
-// What bounds it: FP32 work, about 40 operations per Havel column of
-// each leaf a ray enters and 20 per node box it tests; the Havel rows
-// (80 bytes a column) stay in global memory and are read through L1 and
-// L2, where the threads of a warp in the same leaf read the same column
-// at the same step (a broadcast); the node arrays are a few KB.
+// visits a node when any ray of a 1024-ray block hits its box and tests a
+// leaf's tile for the rows whose rays hit it. Here the consensus is a
+// warp's: the lanes that trace the bounce (`walkers`, a ballot taken at
+// the call site, never a full mask or __activemask) walk one DFS node
+// sequence with a warp-uniform node. Each lane slab-tests the node against
+// its own ray and its own best t; the warp descends to node + 1 when a
+// ballot says any lane hit the box, else it jumps to the skip pointer. A
+// child's box lies inside its parent's and the slab arithmetic rounds
+// monotonically in the bounds, so a lane that misses a box misses all it
+// holds: each lane meets the leaves a walk of its ray alone meets, in the
+// same order, with the same best t. What bounds the walk on this card is
+// FP32 work, about 41 operations per Havel column of each leaf a ray
+// enters and 25 per node box it tests. The design spends the lanes only on
+// (ray, column) pairs that can win, as K4 does:
+// - Real columns only. A leaf's real triangles are a prefix of its tile
+//   (`bvh_c`, per node); the zero padding behind them has a zero normal,
+//   fails the back-face test and is not scanned.
+// - The leaf's columns are shared by the walking lanes. The m lanes that
+//   hit a leaf are compacted by ballot and popc, and S = the largest power
+//   of two <= k / m (k walking lanes) workers take each needing ray: the
+//   worker of rank r * S + s among the walkers tests columns s, s + S, ...
+//   of needing ray r (its origin, direction and best t come by shuffles)
+//   and keeps its first strict minimum below that best. The S partial (t,
+//   column) pairs are reduced by shuffles, smaller t first, then the lower
+//   column, and the needing lane takes the result. The minimum does not
+//   depend on the order of comparisons, so the winner is the sequential
+//   scan's (strict t < best, the lowest column among equal t).
+// - Columns as 16-byte vectors: the scan reads a column's 12 Havel
+//   geometry rows as 3 float4 from the array-of-structures copy `aos`.
+// The winner's normal and material rows are read from its column of
+// `trih` once, after the walk. No __syncthreads runs in any bounce loop,
+// and no leaf is staged per CTA: the lanes of a CTA are at different
+// bounces and samples.
 //
 // A thread of K1 or K2 leaves a path as soon as it dies. The TPU kernels
 // run a 1024-ray block until every ray in it has died; a dead ray's bounce
@@ -55,17 +72,17 @@
 // uneven (the Cornell box is open to the sky at the front: a path leaves
 // after a bounce or two, ends at the light, or runs all its bounces). A
 // loop over samples with the bounces inside would run each sample of a
-// warp for as many bounces as its longest path; K1 regenerates instead,
-// so a warp's time is about the largest of its lanes' summed path lengths.
-// The raygen step is then the divergent part, which the waiting lanes of
-// a warp take together. The camera frame sits in shared memory, not in 21
-// registers a thread (it cost 56 bytes of spills there). Memory traffic
-// is negligible: the packed scene rows are read from shared memory and
-// each pixel writes 12 bytes once. Scene rows at their true counts are
-// copied into shared memory at block start when they fit in 48 KB (Cornell is
-// about 10 primitives, under 1 KB); larger scenes (a brute-force mesh pack
-// of ~2.2k Havel columns is ~176 KB) are read from global memory through
-// the read-only cache.
+// warp for as many bounces as its longest path; K1 and K2 regenerate
+// instead, so a warp's time is about the largest of its lanes' summed path
+// lengths. The path start is then the divergent part, which the waiting
+// lanes of a warp take together. K1's camera frame sits in shared memory,
+// not in 21 registers a thread (it cost 56 bytes of spills there). Memory
+// traffic is negligible: the packed scene rows are read from shared memory
+// and each pixel writes 12 bytes once. Scene rows at their true counts are
+// copied into shared memory at block start when they fit in 48 KB (Cornell
+// is about 10 primitives, under 1 KB); larger scenes (a brute-force mesh
+// pack of ~2.2k Havel columns is ~176 KB) are read from global memory
+// through the read-only cache.
 //
 // Rounding follows the plain torch version (ops/cuda/bounce_kernel.py):
 // no fused multiply-add (built with --fmad=false), true divisions, and
@@ -97,9 +114,15 @@ constexpr int kFlagSky = 1, kFlagRR = 2, kFlagEmission = 4;
 // Threads a CTA: K1's own, and K2's and K0's.
 constexpr int kRenderThreads = 128;
 constexpr int kThreads = 128;
-// Lanes of a K1 warp that wait for a new path before they start it.
+// Lanes of a K1 or K2 warp that wait for a new path before they start it.
 constexpr int kRegenLanes = 4;
+// CTAs a SM that K2 with the walk is compiled for (80 registers a thread
+// instead of 87-92: 6 CTAs instead of 5, 10-15% faster on the mesh;
+// tools/walk_steps.py).
+constexpr int kPathWalkCtas = 6;
 constexpr unsigned kFull = 0xffffffffu;
+// A column index above every real one: a walk partial without a hit.
+constexpr int kNoColumn = 0x7fffffff;
 constexpr int kSmemLimit = 48 * 1024;
 
 __device__ __forceinline__ float sqrt_f(float x) { return sqrtf(x); }
@@ -136,10 +159,13 @@ struct Scene {
   const float* box;
   int ns, np, nt, nq, nb;
   // The tile-BVH of the mesh (kBvh): node boxes (6, n_nodes), node meta
-  // (5, n_nodes: is_leaf, tile start, skip, tile_lo, tile_hi) and the
-  // Havel rows (20, trih_cols) in leaf-tile order, leaf_tile per leaf.
-  const float* bvh_b; const int32_t* bvh_m; const float* trih;
-  int n_nodes, trih_cols, leaf_tile;
+  // (5, n_nodes: is_leaf, tile start, skip, tile_lo, tile_hi), each node's
+  // real columns (n_nodes: a leaf's prefix of its tile, 0 for the others),
+  // the Havel rows (20, trih_cols) in leaf-tile order and their 12
+  // geometry rows column by column (trih_cols x 3 float4).
+  const float* bvh_b; const int32_t* bvh_m; const int32_t* bvh_c;
+  const float* trih; const float4* aos;
+  int n_nodes, trih_cols;
 };
 
 struct Hit {
@@ -174,20 +200,43 @@ __device__ __forceinline__ void havel(Hit& h, const float* rows, int n, int coun
   }
 }
 
-// The closest mesh hit through the tile-BVH, in front of h.t (see the
-// file comment).
-__device__ __forceinline__ void bvh_closest(Hit& h, const Scene& s, float ox,
-                                            float oy, float oz, float dx, float dy,
-                                            float dz, float tmin) {
+__device__ __forceinline__ unsigned lanes_below() {
+  unsigned lt;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(lt));
+  return lt;
+}
+
+// The lane of the set bit of rank q (from 0) of `mask`, q < popc(mask).
+__device__ __forceinline__ int lane_of(unsigned mask, int q) {
+  if (mask == kFull) return q;
+  int lane = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int c = __popc(mask & ((1u << w) - 1u));
+    if (c <= q) { q -= c; mask >>= w; lane += w; }
+  }
+  return lane;
+}
+
+// The closest mesh hit through the tile-BVH, in front of h.t, walked by
+// the lanes of `walkers` together (see the file comment). Every lane of
+// `walkers` must call it, and no other lane.
+__device__ __forceinline__ void bvh_closest(Hit& h, const Scene& s, unsigned walkers,
+                                            float ox, float oy, float oz, float dx,
+                                            float dy, float dz, float tmin) {
   const float eps_d = 1e-20f;
   const float sdx = fabsf(dx) < eps_d ? (dx >= 0.0f ? eps_d : -eps_d) : dx;
   const float sdy = fabsf(dy) < eps_d ? (dy >= 0.0f ? eps_d : -eps_d) : dy;
   const float sdz = fabsf(dz) < eps_d ? (dz >= 0.0f ? eps_d : -eps_d) : dz;
   const float ix = 1.0f / sdx, iy = 1.0f / sdy, iz = 1.0f / sdz;
   const int nn = s.n_nodes, n = s.trih_cols;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = lanes_below();
+  const int k = __popc(walkers);         // the walking lanes
+  const int w = __popc(walkers & below);  // this lane's rank among them
   float best = h.t;
   int win = -1;
-  int node = 0;
+  int node = 0;  // the same in every walking lane
   while (node < nn) {
     const float* B = s.bvh_b + node;
     float t0 = (__ldg(B) - ox) * ix, t1 = (__ldg(B + 3 * nn) - ox) * ix;
@@ -197,26 +246,66 @@ __device__ __forceinline__ void bvh_closest(Hit& h, const Scene& s, float ox,
     t0 = (__ldg(B + 2 * nn) - oz) * iz; t1 = (__ldg(B + 5 * nn) - oz) * iz;
     tn = fmaxf(tn, fminf(t0, t1)); tf = fminf(tf, fmaxf(t0, t1));
     const bool hit = tf >= tn && tf >= tmin && tn < best;
+    const unsigned need = __ballot_sync(walkers, hit);
     const int32_t* M = s.bvh_m + node;
-    if (hit && __ldg(M) != 1) { ++node; continue; }
-    if (hit) {
-      const int first = __ldg(M + nn);
-      for (int c = first; c < first + s.leaf_tile; ++c) {
-        const float* H = s.trih + c;
-        const float nx = __ldg(H), ny = __ldg(H + n), nz = __ldg(H + 2 * n);
-        const float dn = dx * nx + dy * ny + dz * nz;
-        const bool ok = dn < -kFltEps;  // backface culling
-        const float inv = 1.0f / (ok ? dn : 1.0f);
-        const float t = (__ldg(H + 3 * n) - (ox * nx + oy * ny + oz * nz)) * inv;
-        const float hx = ox + t * dx, hy = oy + t * dy, hz = oz + t * dz;
-        const float u = __ldg(H + 4 * n) * hx + __ldg(H + 5 * n) * hy +
-                        __ldg(H + 6 * n) * hz + __ldg(H + 7 * n);
-        const float v = __ldg(H + 8 * n) * hx + __ldg(H + 9 * n) * hy +
-                        __ldg(H + 10 * n) * hz + __ldg(H + 11 * n);
-        if (ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tmin && t < best) {
-          best = t;
-          win = c;
+    if (need && __ldg(M) != 1) { ++node; continue; }
+    if (need) {
+      // S workers a needing ray: worker (r, c) = rank r * S + c among the
+      // walkers scans columns c, c + S, ... of needing ray r.
+      const int first = __ldg(M + nn), count = __ldg(s.bvh_c + node);
+      const int m = __popc(need);
+      const int log_s = 31 - __clz(k / m);
+      const int S = 1 << log_s;
+      const int r = w >> log_s;
+      const bool working = r < m;
+      const int src = lane_of(need, working ? r : 0);
+      const float rox = __shfl_sync(walkers, ox, src);
+      const float roy = __shfl_sync(walkers, oy, src);
+      const float roz = __shfl_sync(walkers, oz, src);
+      const float rdx = __shfl_sync(walkers, dx, src);
+      const float rdy = __shfl_sync(walkers, dy, src);
+      const float rdz = __shfl_sync(walkers, dz, src);
+      float bt = __shfl_sync(walkers, best, src);
+      int col = kNoColumn;
+      if (working) {
+        const float4* A = s.aos + (size_t)first * 3;
+        for (int j = w & (S - 1); j < count; j += S) {
+          const float4 g0 = __ldg(A + 3 * j);      // n.xyz, dc
+          const float4 g1 = __ldg(A + 3 * j + 1);  // e1p, d1
+          const float4 g2 = __ldg(A + 3 * j + 2);  // e2p, d2
+          const float dn = rdx * g0.x + rdy * g0.y + rdz * g0.z;
+          const bool ok = dn < -kFltEps;  // backface culling
+          const float inv = 1.0f / (ok ? dn : 1.0f);
+          const float t = (g0.w - (rox * g0.x + roy * g0.y + roz * g0.z)) * inv;
+          const float hx = rox + t * rdx, hy = roy + t * rdy, hz = roz + t * rdz;
+          const float u = g1.x * hx + g1.y * hy + g1.z * hz + g1.w;
+          const float v = g2.x * hx + g2.y * hy + g2.z * hz + g2.w;
+          if (ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tmin && t < bt) {
+            bt = t;
+            col = j;
+          }
         }
+      }
+      // The lexicographic (t, column) minimum over a ray's S workers, whose
+      // ranks differ in their low log_s bits only.
+      for (int off = S >> 1; off > 0; off >>= 1) {
+        const int other = w ^ off;
+        const int from = other < k ? lane_of(walkers, other) : lane;
+        const float ot = __shfl_sync(walkers, bt, from);
+        const int oc = __shfl_sync(walkers, col, from);
+        if (ot < bt || (ot == bt && oc < col)) {
+          bt = ot;
+          col = oc;
+        }
+      }
+      // A needing lane takes its ray's result from the ray's first worker.
+      const bool needs = (need >> lane) & 1u;
+      const int from = needs ? lane_of(walkers, __popc(need & below) << log_s) : lane;
+      const float rt = __shfl_sync(walkers, bt, from);
+      const int rc = __shfl_sync(walkers, col, from);
+      if (needs && rc != kNoColumn) {
+        best = rt;
+        win = first + rc;
       }
     }
     node = __ldg(M + 2 * nn);
@@ -231,7 +320,8 @@ __device__ __forceinline__ void bvh_closest(Hit& h, const Scene& s, float ox,
 
 template <bool kBvh>
 __device__ Hit closest_hit(const Scene& s, float ox, float oy, float oz,
-                           float dx, float dy, float dz, float tm, float tmin) {
+                           float dx, float dy, float dz, float tm, float tmin,
+                           unsigned walkers) {
   Hit h;
   h.t = kBig; h.kind = -1.0f;
   h.nx = h.ny = h.nz = 0.0f;
@@ -288,7 +378,7 @@ __device__ Hit closest_hit(const Scene& s, float ox, float oy, float oz,
   }
 
   if constexpr (kBvh) {
-    bvh_closest(h, s, ox, oy, oz, dx, dy, dz, tmin);
+    bvh_closest(h, s, walkers, ox, oy, oz, dx, dy, dz, tmin);
     return h;
   }
   havel(h, s.tri, s.nt, s.nt, false, ox, oy, oz, dx, dy, dz, tmin);
@@ -373,13 +463,16 @@ __device__ __forceinline__ Flags decode_flags(int flags) {
 // Russian roulette. Returns whether the path goes on. A path that ends
 // keeps its ray; its throughput is the incoming one, times the
 // attenuation when Russian roulette ended it (as the plain version's).
+// With the tile-BVH walk, `walkers` are the lanes of the warp that call it
+// together (unused without the walk).
 template <bool kBvh>
 __device__ __forceinline__ bool bounce(const Scene& s, Path& p, float tm,
                                        float v0, float v1, float v2, float v3,
-                                       bool do_rr, const Flags& fl, float tmin) {
+                                       bool do_rr, const Flags& fl, float tmin,
+                                       unsigned walkers) {
   const float ox = p.ox, oy = p.oy, oz = p.oz;
   const float dx = p.dx, dy = p.dy, dz = p.dz;
-  Hit h = closest_hit<kBvh>(s, ox, oy, oz, dx, dy, dz, tm, tmin);
+  Hit h = closest_hit<kBvh>(s, ox, oy, oz, dx, dy, dz, tm, tmin, walkers);
   const bool valid = h.kind >= 0.0f;
   const int kind = (int)h.kind;
 
@@ -547,8 +640,9 @@ __device__ __forceinline__ bool bounce(const Scene& s, Path& p, float tm,
 
 // The tile-BVH arguments every entry takes (null and zeros without one).
 struct MeshArgs {
-  const float* bvh_b; const int32_t* bvh_m; const float* trih;
-  int n_nodes, trih_cols, leaf_tile;
+  const float* bvh_b; const int32_t* bvh_m; const int32_t* bvh_c;
+  const float* trih; const float* aos;
+  int n_nodes, trih_cols;
 };
 
 // The packed scene rows, copied into shared memory when they fit (see the
@@ -570,9 +664,9 @@ __device__ __forceinline__ Scene load_scene(const float* scene_g, float* smem,
   s.tri = s.pla + kPlaRows * np;
   s.quad = s.tri + kHavRows * nt;
   s.box = s.quad + kHavRows * nq;
-  s.bvh_b = mesh.bvh_b; s.bvh_m = mesh.bvh_m; s.trih = mesh.trih;
+  s.bvh_b = mesh.bvh_b; s.bvh_m = mesh.bvh_m; s.bvh_c = mesh.bvh_c;
+  s.trih = mesh.trih; s.aos = (const float4*)mesh.aos;
   s.n_nodes = mesh.n_nodes; s.trih_cols = mesh.trih_cols;
-  s.leaf_tile = mesh.leaf_tile;
   return s;
 }
 
@@ -673,11 +767,13 @@ render_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
       b = 0;
       busy = true;
     }
+    // The lanes that trace this step walk the tile-BVH together.
+    const unsigned walkers = kBvh ? __ballot_sync(kFull, busy) : 0u;
     if (busy) {
       float v0, v1, v2, v3;
       bounce_uniforms(p, b0, b1, b, v0, v1, v2, v3);
       const bool cont = bounce<kBvh>(s, path, tm, v0, v1, v2, v3,
-                                     fl.rr && b >= rr_start, fl, tmin);
+                                     fl.rr && b >= rr_start, fl, tmin, walkers);
       ++b;
       if (!cont || b == bounces) {
         arx = arx + path.rx; ary = ary + path.ry; arz = arz + path.rz;
@@ -692,10 +788,16 @@ render_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
   out[3 * i + 2] = arz;
 }
 
-// K2: the whole bounce loop of one supplied ray per thread, with the
-// per-thread exit; one sample's key words (b0, b1) for the wavefront.
+// K2: the whole bounce loop of supplied rays, one sample's key words (b0,
+// b1) for the wavefront, on a persistent grid with path regeneration. Each
+// warp owns a contiguous range of the rays (its share of [0, n), so a
+// warp's rays stay neighbours); a lane whose path has ended takes the
+// range's next ray, and the waiting lanes start their rays together, once
+// kRegenLanes of them wait or no lane traces (K1's vote). Ray i's radiance
+// goes to out[3 * i] whichever lane traced it, and its draws depend on
+// (pid[i], b0, b1, bounce) only.
 template <bool kBvh>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBvh ? kPathWalkCtas : 1)
 path_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
             int nb, int n_floats, int use_smem, MeshArgs mesh,
             const float* __restrict__ origin,
@@ -706,32 +808,67 @@ path_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
   extern __shared__ float smem[];
   const Scene s = load_scene(scene_g, smem, ns, np, nt, nq, nb, n_floats, use_smem,
                              mesh);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
   const Flags fl = decode_flags(flags);
-  const uint32_t p = (uint32_t)pid_g[i];
-  Path path;
-  path.ox = origin[3 * i]; path.oy = origin[3 * i + 1]; path.oz = origin[3 * i + 2];
-  path.dx = direction[3 * i]; path.dy = direction[3 * i + 1];
-  path.dz = direction[3 * i + 2];
-  const float tm = time[i];
-  path.tpx = path.tpy = path.tpz = 1.0f;
-  path.rx = path.ry = path.rz = 0.0f;
-  for (int b = 0; b < bounces; ++b) {
-    float v0, v1, v2, v3;
-    bounce_uniforms(p, b0, b1, b, v0, v1, v2, v3);
-    if (!bounce<kBvh>(s, path, tm, v0, v1, v2, v3, fl.rr && b >= rr_start, fl, tmin))
-      break;
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * (kThreads / 32);
+  const long long wid = (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int hi = (int)((wid + 1) * n / warps);
+  int next = (int)(wid * n / warps);  // the range's first ray not yet started
+  if (bounces <= 0) {
+    for (int j = next + lane; j < hi; j += 32)
+      out[3 * j] = out[3 * j + 1] = out[3 * j + 2] = 0.0f;
+    return;
   }
-  out[3 * i + 0] = path.rx;
-  out[3 * i + 1] = path.ry;
-  out[3 * i + 2] = path.rz;
+  const unsigned below = lanes_below();
+  Path path;
+  float tm = 0.0f;
+  uint32_t p = 0u;
+  int i = 0, b = 0;
+  bool busy = false;  // a path is under way
+  for (;;) {
+    const unsigned idle = __ballot_sync(kFull, !busy);
+    const int left = hi - next;  // the same in every lane
+    if (left <= 0 && idle == kFull) break;
+    if (left > 0 && (idle == kFull || __popc(idle) >= kRegenLanes)) {
+      const int q = __popc(idle & below);
+      if (!busy && q < left) {
+        i = next + q;
+        p = (uint32_t)pid_g[i];
+        path.ox = origin[3 * i]; path.oy = origin[3 * i + 1];
+        path.oz = origin[3 * i + 2];
+        path.dx = direction[3 * i]; path.dy = direction[3 * i + 1];
+        path.dz = direction[3 * i + 2];
+        tm = time[i];
+        path.tpx = path.tpy = path.tpz = 1.0f;
+        path.rx = path.ry = path.rz = 0.0f;
+        b = 0;
+        busy = true;
+      }
+      next += min(__popc(idle), left);
+    }
+    // The lanes that trace this step walk the tile-BVH together.
+    const unsigned walkers = kBvh ? __ballot_sync(kFull, busy) : 0u;
+    if (busy) {
+      float v0, v1, v2, v3;
+      bounce_uniforms(p, b0, b1, b, v0, v1, v2, v3);
+      const bool cont = bounce<kBvh>(s, path, tm, v0, v1, v2, v3,
+                                     fl.rr && b >= rr_start, fl, tmin, walkers);
+      ++b;
+      if (!cont || b == bounces) {
+        out[3 * i + 0] = path.rx;
+        out[3 * i + 1] = path.ry;
+        out[3 * i + 2] = path.rz;
+        busy = false;
+      }
+    }
+  }
 }
 
 // K0: one bounce over the planar carry. `state` is (13, n) rows ox oy oz
 // dx dy dz tm tpx tpy tpz rx ry rz, `u4` (n, 4); `out` is (12, n), the
 // carry without tm, and `alive_out` the continue flag. Dead rays pass
-// through with alive 0.
+// through with alive 0. With the tile-BVH walk every lane of a warp stays
+// for the vote on who walks, those past n included.
 template <bool kBvh>
 __global__ void __launch_bounds__(kThreads)
 bounce_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
@@ -744,18 +881,30 @@ bounce_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
   const Scene s = load_scene(scene_g, smem, ns, np, nt, nq, nb, n_floats, use_smem,
                              mesh);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  if (!kBvh && i >= n) return;
+  const bool in = i < n;
   const Flags fl = decode_flags(flags);
   Path path;
-  path.ox = state[i]; path.oy = state[n + i]; path.oz = state[2 * n + i];
-  path.dx = state[3 * n + i]; path.dy = state[4 * n + i]; path.dz = state[5 * n + i];
-  const float tm = state[6 * n + i];
-  path.tpx = state[7 * n + i]; path.tpy = state[8 * n + i]; path.tpz = state[9 * n + i];
-  path.rx = state[10 * n + i]; path.ry = state[11 * n + i]; path.rz = state[12 * n + i];
+  float tm = 0.0f;
+  bool live = false;
+  if (in) {
+    path.ox = state[i]; path.oy = state[n + i]; path.oz = state[2 * n + i];
+    path.dx = state[3 * n + i]; path.dy = state[4 * n + i];
+    path.dz = state[5 * n + i];
+    tm = state[6 * n + i];
+    path.tpx = state[7 * n + i]; path.tpy = state[8 * n + i];
+    path.tpz = state[9 * n + i];
+    path.rx = state[10 * n + i]; path.ry = state[11 * n + i];
+    path.rz = state[12 * n + i];
+    live = alive[i] != 0;
+  }
+  // The live rays walk the tile-BVH together.
+  const unsigned walkers = kBvh ? __ballot_sync(kFull, live) : 0u;
   bool cont = false;
-  if (alive[i] != 0)
+  if (live)
     cont = bounce<kBvh>(s, path, tm, u4[4 * i], u4[4 * i + 1], u4[4 * i + 2],
-                        u4[4 * i + 3], fl.rr && do_rr != 0, fl, tmin);
+                        u4[4 * i + 3], fl.rr && do_rr != 0, fl, tmin, walkers);
+  if (!in) return;
   out[i] = path.ox; out[n + i] = path.oy; out[2 * n + i] = path.oz;
   out[3 * n + i] = path.dx; out[4 * n + i] = path.dy; out[5 * n + i] = path.dz;
   out[6 * n + i] = path.tpx; out[7 * n + i] = path.tpy; out[8 * n + i] = path.tpz;
@@ -774,22 +923,35 @@ size_t smem_bytes(int n_floats) {
   return bytes <= (size_t)kSmemLimit ? bytes : 0;
 }
 
+// CTAs of `kernel` resident on one SM at `threads` a CTA and `bytes` of
+// shared memory, and the SMs of the current device.
+int residency(const void* kernel, int threads, size_t bytes, int* ctas, int* sms) {
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err == 0)
+    err = (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == 0)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel, threads,
+                                                             bytes);
+  return err;
+}
+
 }  // namespace
 
 extern "C" int rtnw_render_samples(const float* scene, int n_sph, int n_pla,
                                    int n_trih, int n_quad, int n_box,
                                    const float* bvh_b, const int32_t* bvh_m,
-                                   const float* trih, int n_nodes, int trih_cols,
-                                   int leaf_tile, const float* frame,
-                                   const uint32_t* words, int n_samples,
-                                   const int32_t* pid, int n, int width,
-                                   int height, int bounces, int rr_start,
-                                   float tmin, int flags, float* out,
+                                   const int32_t* bvh_c, const float* trih,
+                                   const float* aos, int n_nodes, int trih_cols,
+                                   const float* frame, const uint32_t* words,
+                                   int n_samples, const int32_t* pid, int n,
+                                   int width, int height, int bounces,
+                                   int rr_start, float tmin, int flags, float* out,
                                    void* stream) {
   const int n_floats = scene_floats(n_sph, n_pla, n_trih, n_quad, n_box);
   const size_t bytes = smem_bytes(n_floats);
   const int blocks = (n + kRenderThreads - 1) / kRenderThreads;
-  const MeshArgs mesh{bvh_b, bvh_m, trih, n_nodes, trih_cols, leaf_tile};
+  const MeshArgs mesh{bvh_b, bvh_m, bvh_c, trih, aos, n_nodes, trih_cols};
   auto kernel = n_nodes > 0 ? render_kernel<true> : render_kernel<false>;
   kernel<<<blocks, kRenderThreads, bytes, (cudaStream_t)stream>>>(
       scene, n_sph, n_pla, n_trih, n_quad, n_box, n_floats, bytes > 0 ? 1 : 0,
@@ -798,20 +960,26 @@ extern "C" int rtnw_render_samples(const float* scene, int n_sph, int n_pla,
   return (int)cudaGetLastError();
 }
 
+// K2's grid is persistent: the CTAs that fit on the card at once, or fewer
+// when the rays fill fewer.
 extern "C" int rtnw_path_trace(const float* scene, int n_sph, int n_pla,
                                int n_trih, int n_quad, int n_box,
                                const float* bvh_b, const int32_t* bvh_m,
-                               const float* trih, int n_nodes, int trih_cols,
-                               int leaf_tile, const float* origin,
-                               const float* direction, const float* time,
-                               const int32_t* pid, uint32_t b0, uint32_t b1,
-                               int n, int bounces, int rr_start, float tmin,
-                               int flags, float* out, void* stream) {
+                               const int32_t* bvh_c, const float* trih,
+                               const float* aos, int n_nodes, int trih_cols,
+                               const float* origin, const float* direction,
+                               const float* time, const int32_t* pid, uint32_t b0,
+                               uint32_t b1, int n, int bounces, int rr_start,
+                               float tmin, int flags, float* out, void* stream) {
   const int n_floats = scene_floats(n_sph, n_pla, n_trih, n_quad, n_box);
   const size_t bytes = smem_bytes(n_floats);
-  const int blocks = (n + kThreads - 1) / kThreads;
-  const MeshArgs mesh{bvh_b, bvh_m, trih, n_nodes, trih_cols, leaf_tile};
+  const MeshArgs mesh{bvh_b, bvh_m, bvh_c, trih, aos, n_nodes, trih_cols};
   auto kernel = n_nodes > 0 ? path_kernel<true> : path_kernel<false>;
+  int ctas = 0, sms = 0;
+  const int err = residency((const void*)kernel, kThreads, bytes, &ctas, &sms);
+  if (err != 0) return err;
+  const int fill = (n + kThreads - 1) / kThreads, resident = (ctas > 0 ? ctas : 1) * sms;
+  const int blocks = fill < resident ? fill : resident;
   kernel<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
       scene, n_sph, n_pla, n_trih, n_quad, n_box, n_floats, bytes > 0 ? 1 : 0,
       mesh, origin, direction, time, pid, b0, b1, n, bounces, rr_start, tmin,
@@ -822,15 +990,16 @@ extern "C" int rtnw_path_trace(const float* scene, int n_sph, int n_pla,
 extern "C" int rtnw_bounce_step(const float* scene, int n_sph, int n_pla,
                                 int n_trih, int n_quad, int n_box,
                                 const float* bvh_b, const int32_t* bvh_m,
-                                const float* trih, int n_nodes, int trih_cols,
-                                int leaf_tile, const float* state,
-                                const int32_t* alive, const float* u4, int n,
-                                int do_rr, float tmin, int flags, float* out,
-                                int32_t* alive_out, void* stream) {
+                                const int32_t* bvh_c, const float* trih,
+                                const float* aos, int n_nodes, int trih_cols,
+                                const float* state, const int32_t* alive,
+                                const float* u4, int n, int do_rr, float tmin,
+                                int flags, float* out, int32_t* alive_out,
+                                void* stream) {
   const int n_floats = scene_floats(n_sph, n_pla, n_trih, n_quad, n_box);
   const size_t bytes = smem_bytes(n_floats);
   const int blocks = (n + kThreads - 1) / kThreads;
-  const MeshArgs mesh{bvh_b, bvh_m, trih, n_nodes, trih_cols, leaf_tile};
+  const MeshArgs mesh{bvh_b, bvh_m, bvh_c, trih, aos, n_nodes, trih_cols};
   auto kernel = n_nodes > 0 ? bounce_kernel<true> : bounce_kernel<false>;
   kernel<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
       scene, n_sph, n_pla, n_trih, n_quad, n_box, n_floats, bytes > 0 ? 1 : 0,

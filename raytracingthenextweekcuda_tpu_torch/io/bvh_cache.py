@@ -98,8 +98,11 @@ def build_or_load_tile_bvh(vertices: np.ndarray, leaf_size: int,
     tb = (build_tile_bvh_sah(vertices, leaf_size) if tag == "sah"
           else build_tile_bvh(vertices, leaf_size))
     if path is not None:
-        os.makedirs(cache_dir, exist_ok=True)
-        save_tile_bvh(path, tb)
+        try:
+            os.makedirs(cache_dir, exist_ok=True)
+            save_tile_bvh(path, tb)
+        except OSError:
+            pass  # the cache directory cannot be written: the build is not cached
     return tb
 
 

@@ -9,8 +9,9 @@ The three kernels (csrc/render_kernel.cu) share one bounce body:
   planes, Havel triangles and quads, and oriented boxes, summing the
   radiance. On a tile-BVH pack the triangles are found by a walk of the
   tile-BVH instead (the reference's consensus branch, bounce_kernel.py:
-  820-1044): the kernels walk it per ray, the plain version as one
-  consensus block over the wavefront; both find the same winner.
+  820-1044): the kernels walk it with a warp's consensus, the plain version
+  as one consensus block over the wavefront; both scan each leaf's real
+  columns only and find the same winner.
 - K2, `path_trace`, traces a supplied wavefront of one sample to the end.
 - K0, `bounce_step`, advances the planar carry of `planar_state` by one
   bounce on pre-drawn uniforms.
@@ -45,6 +46,7 @@ from raytracingthenextweekcuda_tpu_torch.ops.fmath import (
     sin as _sin,
     sqrt as _sqrt,
 )
+from raytracingthenextweekcuda_tpu_torch.ops.cuda.bvh_winner_kernel import real_columns
 from raytracingthenextweekcuda_tpu_torch.ops.cuda.intersect_kernel import (
     BIG,
     PackedScene,
@@ -416,7 +418,10 @@ class SceneInputs:
     tile-BVH pack the buffer holds the spheres and planes only, and the
     mesh is `trih`, its Havel rows in leaf-tile order, walked through
     `bvh_bounds` and `bvh_meta` (is_leaf, tile start, skip, tile_lo,
-    tile_hi per node); a leaf covers `leaf_tile` columns.
+    tile_hi per node); a leaf covers `leaf_tile` columns, of which its
+    first `bvh_count` are real (the rest zero padding, never hit).
+    `trih_aos` holds the 12 geometry rows of `trih` column by column, the
+    16-byte vectors the kernels' leaf scans read.
     """
 
     scene: torch.Tensor        # (F,) float32
@@ -432,6 +437,8 @@ class SceneInputs:
     bvh_meta: torch.Tensor | None = None     # (5, M) int32
     trih: torch.Tensor | None = None         # (20, C) float32
     leaf_tile: int = 0
+    bvh_count: torch.Tensor | None = None    # (M,) int32, 0 but at leaves
+    trih_aos: torch.Tensor | None = None     # (C, 12) float32
 
     @property
     def rows(self) -> dict:
@@ -490,16 +497,38 @@ class BounceInputs(SceneInputs):
     do_rr: bool
 
 
-def _tile_bvh_inputs(packed: PackedScene, device) -> dict:
-    """The tile-BVH fields of SceneInputs, on `device`; the leaf width is
-    the reference's `trih.shape[1] // leaf_tiles.shape[1]`."""
+def node_columns(trih: torch.Tensor, meta: torch.Tensor,
+                 leaf_tile: int) -> torch.Tensor:
+    """(M,) int32: the real columns of each leaf node's tile (`real_columns`
+    over the Havel normal rows of `trih`, tiles starting at meta row 1),
+    0 for the interior nodes."""
+    leaf = meta[0] == 1
+    count = torch.zeros(meta.shape[1], dtype=torch.int32, device=meta.device)
+    if bool(leaf.any()):
+        count[leaf] = real_columns(trih[0:3], meta[1][leaf], leaf_tile)
+    return count
+
+
+def tile_bvh_fields(bounds, meta, trih, leaf_tile: int, device) -> dict:
+    """The tile-BVH fields of SceneInputs on `device`, from the host arrays
+    of node bounds (6, M), node meta (5, M) and Havel rows (20, C): with
+    each node's real columns and the geometry rows column by column."""
     def on(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
-    return dict(bvh_bounds=on(packed.bvh_bounds, np.float32),
-                bvh_meta=on(packed.bvh_meta, np.int32),
-                trih=on(packed.trih, np.float32),
-                leaf_tile=int(packed.trih.shape[1] // packed.leaf_tiles.shape[1]))
+    meta, trih = on(meta, np.int32), on(trih, np.float32)
+    return dict(bvh_bounds=on(bounds, np.float32), bvh_meta=meta, trih=trih,
+                leaf_tile=int(leaf_tile),
+                bvh_count=node_columns(trih, meta, leaf_tile),
+                trih_aos=trih[:HAVEL_ROWS].t().contiguous())
+
+
+def _tile_bvh_inputs(packed: PackedScene, device) -> dict:
+    """The tile-BVH fields of SceneInputs, on `device`; the leaf width is
+    the reference's `trih.shape[1] // leaf_tiles.shape[1]`."""
+    return tile_bvh_fields(packed.bvh_bounds, packed.bvh_meta, packed.trih,
+                           packed.trih.shape[1] // packed.leaf_tiles.shape[1],
+                           device)
 
 
 def device_or_raise(device) -> torch.device:
@@ -752,7 +781,8 @@ def _check(kernel: str, dev, specs) -> None:
 
 def _scene_specs(inp: SceneInputs) -> tuple:
     """The (tensor, dtype, shape) checks of the scene inputs: the flat rows
-    and, on a tile-BVH pack, the node and leaf-tile arrays."""
+    and, on a tile-BVH pack, the node and leaf-tile arrays (the column
+    vectors aligned to 16 bytes, each leaf's real columns within its tile)."""
     n_floats = sum(r * c for r, c in zip(TYPE_ROWS.values(), inp.counts))
     specs = ((inp.scene, torch.float32, (n_floats,)),)
     if inp.trih is not None:
@@ -763,19 +793,27 @@ def _scene_specs(inp: SceneInputs) -> tuple:
                              f"{cols} Havel columns")
         specs += ((inp.bvh_bounds, torch.float32, (6, m)),
                   (inp.bvh_meta, torch.int32, (5, m)),
-                  (inp.trih, torch.float32, (HAVEL_ROWS + MAT_ROWS, cols)))
+                  (inp.bvh_count, torch.int32, (m,)),
+                  (inp.trih, torch.float32, (HAVEL_ROWS + MAT_ROWS, cols)),
+                  (inp.trih_aos, torch.float32, (cols, HAVEL_ROWS)))
+        if inp.trih_aos.data_ptr() % 16:
+            raise ValueError("tile-BVH input trih_aos: not aligned to 16 bytes")
+        if not bool(((inp.bvh_count >= 0) & (inp.bvh_count <= inp.leaf_tile)).all()):
+            raise ValueError(f"tile-BVH input bvh_count: a leaf's real columns "
+                             f"outside its tile of {inp.leaf_tile}")
     return specs
 
 
 def _mesh_args(inp: SceneInputs) -> tuple:
     """The tile-BVH arguments of the C entries: node bounds, node meta,
-    Havel rows, node count, Havel column count and leaf width (null
-    pointers and zeros without a tile-BVH)."""
+    nodes' real columns, Havel rows and their column vectors, node count
+    and Havel column count (null pointers and zeros without a tile-BVH)."""
     if inp.trih is None:
-        return (None, None, None, 0, 0, 0)
+        return (None, None, None, None, None, 0, 0)
     return (inp.bvh_bounds.data_ptr(), inp.bvh_meta.data_ptr(),
-            inp.trih.data_ptr(), int(inp.bvh_bounds.shape[1]),
-            int(inp.trih.shape[1]), int(inp.leaf_tile))
+            inp.bvh_count.data_ptr(), inp.trih.data_ptr(),
+            inp.trih_aos.data_ptr(), int(inp.bvh_bounds.shape[1]),
+            int(inp.trih.shape[1]))
 
 
 def _raise_on(kernel: str, lib, err: int) -> None:
@@ -935,18 +973,20 @@ def _tile_bvh_closest(inp: SceneInputs, O, D, best_t):
     wavefront as one block: the nodes in DFS order, a node's subtree
     entered when any ray hits its box (slab test on directions clamped to
     +-1e-20, `tf >= tn`, `tf >= tmin`, `tn < best_t`), else skipped. A leaf
-    tests its tile, 128 columns at a time, for the rays that hit it: a ray
-    takes the strictly closest triangle in front of its best, the lowest
-    column among equal ones. A child's box lies inside its parent's and the
-    slab arithmetic rounds monotonically, so a ray meets the leaves a
-    per-ray walk meets, in the same order, with the same best: the kernels
-    walk each ray alone and find the same winner.
+    tests its real columns (`bvh_count`, a prefix of its tile; the padding
+    behind them can never be hit), 128 at a time, for the rays that hit it:
+    a ray takes the strictly closest triangle in front of its best, the
+    lowest column among equal ones. A child's box lies inside its parent's
+    and the slab arithmetic rounds monotonically, so a ray meets the leaves
+    a per-ray walk meets, in the same order, with the same best: the
+    kernels walk with a warp's consensus and find the same winner.
     """
     O, D = [o[:, 0] for o in O], [d[:, 0] for d in D]
     inv = [1.0 / torch.where(d.abs() < 1e-20, _where(d >= 0.0, 1e-20, -1e-20), d)
            for d in D]
     bounds, trih, tmin = inp.bvh_bounds, inp.trih, inp.tmin
     is_leaf, tile0, skip = inp.bvh_meta[0:3].cpu().tolist()
+    real = inp.bvh_count.cpu().tolist()
     best_t = best_t.clone()
     col = torch.full(best_t.shape, -1, dtype=torch.int64, device=best_t.device)
     # A per-ray walk tests the root, then both children of every interior
@@ -968,8 +1008,9 @@ def _tile_bvh_closest(inp: SceneInputs, O, D, best_t):
                 r = idx[lo: lo + _RAY_CHUNK]
                 o, d = [x[r, None] for x in O], [x[r, None] for x in D]
                 bt, c = best_t[r], col[r]
-                for first in range(tile0[node], tile0[node] + inp.leaf_tile, 128):
-                    h = trih[:, first: first + 128]
+                end = tile0[node] + real[node]
+                for first in range(tile0[node], end, 128):
+                    h = trih[:, first: min(first + 128, end)]
                     dn = d[0] * h[0] + d[1] * h[1] + d[2] * h[2]
                     ok = dn < -FLT_EPSILON
                     inv_dn = 1.0 / _where(ok, dn, 1.0)

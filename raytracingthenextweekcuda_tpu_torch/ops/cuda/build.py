@@ -125,8 +125,9 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [
             vp,                      # scene rows (float*)
             ci, ci, ci, ci, ci,      # n_sph, n_pla, n_trih, n_quad, n_box
-            vp, vp, vp, ci, ci, ci,  # tile-BVH: bounds, meta, Havel rows,
-                                     # nodes, Havel columns, leaf width
+            vp, vp, vp, vp, vp,      # tile-BVH: bounds, meta, real columns,
+            ci, ci,                  # Havel rows and column vectors; nodes,
+                                     # Havel columns
             vp,                      # frame (21 floats)
             vp, ci,                  # sample key words (2*S uint32), S
             vp, ci,                  # pixel ids (int32), n
@@ -140,8 +141,9 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [
             vp,                      # scene rows (float*)
             ci, ci, ci, ci, ci,      # n_sph, n_pla, n_trih, n_quad, n_box
-            vp, vp, vp, ci, ci, ci,  # tile-BVH: bounds, meta, Havel rows,
-                                     # nodes, Havel columns, leaf width
+            vp, vp, vp, vp, vp,      # tile-BVH: bounds, meta, real columns,
+            ci, ci,                  # Havel rows and column vectors; nodes,
+                                     # Havel columns
             vp, vp, vp, vp,          # origin, direction (n, 3), time, pixel ids
             ctypes.c_uint32, ctypes.c_uint32,  # the sample's key words
             ci, ci, ci, cf, ci,      # n, bounces, rr_start, tmin, flags
@@ -153,8 +155,9 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [
             vp,                      # scene rows (float*)
             ci, ci, ci, ci, ci,      # n_sph, n_pla, n_trih, n_quad, n_box
-            vp, vp, vp, ci, ci, ci,  # tile-BVH: bounds, meta, Havel rows,
-                                     # nodes, Havel columns, leaf width
+            vp, vp, vp, vp, vp,      # tile-BVH: bounds, meta, real columns,
+            ci, ci,                  # Havel rows and column vectors; nodes,
+                                     # Havel columns
             vp, vp, vp,              # state (13, n), alive (int32), u4 (n, 4)
             ci, ci, cf, ci,          # n, do_rr, tmin, flags
             vp, vp,                  # out (12, n) float, alive out (int32)

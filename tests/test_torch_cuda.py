@@ -1,11 +1,13 @@
 """K1, K2, K0, K3 and K4 against their plain versions on a CUDA card (K1,
-K2 and K0 at rtol = atol = 1e-4, also on tile-BVH packs, and K1 bit for bit
-where path lengths are most uneven; K3 and K4 bit for bit, K4 also for every
-count of rays that need a leaf, on ties and on skipped prefetches), and
-renders (and one backward of the differentiable wavefront and of the LBVH
-regime) on the card against the same on the CPU. These tests skip without
-a card. The file imports no jax, so it also runs where JAX is not
-installed:
+K2 and K0 at rtol = atol = 1e-4, also on tile-BVH packs; K1 bit for bit
+where path lengths are most uneven; K1, K2 and K0 with the tile-BVH walk bit
+for bit on warps that walk with part of their lanes and on ties between
+leaves; K2 bit for bit on its persistent grid below and above one resident
+grid; K3 and K4 bit for bit, K4 also for every count of rays that need a
+leaf, on ties and on skipped prefetches), and renders (and one backward of
+the differentiable wavefront and of the LBVH regime) on the card against
+the same on the CPU. These tests skip without a card. The file imports no
+jax, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
@@ -19,8 +21,10 @@ from raytracingthenextweekcuda_tpu_torch.models import camera as tcam
 from raytracingthenextweekcuda_tpu_torch.models import integrator
 from raytracingthenextweekcuda_tpu_torch.models import presets as tpresets
 from raytracingthenextweekcuda_tpu_torch.models.scene import finalize
-from raytracingthenextweekcuda_tpu_torch.ops import threefry
+from raytracingthenextweekcuda_tpu_torch.ops import rng, threefry
 from raytracingthenextweekcuda_tpu_torch.ops.cuda import bounce_kernel as bk
+from raytracingthenextweekcuda_tpu_torch.ops.rays import Rays
+from test_torch_walk import inside_rays, tie_inputs
 
 PRESETS = ["diffuse_sphere_plane", "cornell_box", "defocus_blur",
            "smallpt_spheres", "mesh_showcase"]
@@ -418,3 +422,123 @@ def test_k1_uneven_paths_match_plain_on_card(use_bvh, cuda_device):
     k1 = bk.render_kernel(inp).cpu().numpy()
     assert bk.KERNEL_BVH_LAUNCHES == before + use_bvh
     np.testing.assert_array_equal(k1, bk.render_reference(inp).cpu().numpy())
+
+
+def _head(rays, ctx, n):
+    """The first n rays of a wavefront and their context."""
+    return (Rays(rays.origin[:n], rays.direction[:n], rays.time[:n]),
+            rng.RayCtx(ctx.pixel_id[:n], ctx.base0, ctx.base1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stand_in", ["published", "stress"])
+def test_walk_on_partial_warps_matches_plain(stand_in, cuda_device):
+    """K1, K2 and K0 with the tile-BVH walk where warps walk with part of
+    their lanes, bit for bit against their plain versions: K1 over 1,000
+    scattered pixels (not a multiple of 32) at 3 spp with Russian roulette,
+    so lanes end their samples at different steps; K2 on 4,001 rays; K0 on
+    4,001 rays, a third of them dead."""
+    from raytracingthenextweekcuda_tpu_torch.apps import bench_scenes
+
+    scene, camera, _ = getattr(bench_scenes, f"{stand_in}_mesh_scene")()
+    scene = finalize(scene)
+    cfg = RenderConfig(width=64, height=64, spp=3, bounces=6, spp_per_pass=3,
+                       russian_roulette=True, rr_start_bounce=1)
+    frame = tcam.derive(camera, cfg.aspect_ratio)
+    words = threefry.split(threefry.key(5), 3)
+    gen = np.random.default_rng(2)
+    pid = gen.choice(64 * 64, 1000, replace=False)
+    before = (bk.KERNEL_BVH_LAUNCHES, bk.PATH_BVH_LAUNCHES, bk.BOUNCE_BVH_LAUNCHES)
+    inp = bk.render_inputs(scene.packed, frame, words, cfg, pixel_ids=pid,
+                           device=cuda_device)
+    assert torch.equal(bk.render_kernel(inp), bk.render_reference(inp))
+    rays, ctx = _head(*tcam.generate_rays(frame, words[0], 64, 64,
+                                          device=cuda_device), 4001)
+    assert torch.equal(bk.path_trace(scene.packed, rays, ctx, cfg),
+                       bk.path_trace_reference(scene.packed, rays, ctx, cfg))
+    state = bk.bounce_step_reference(
+        scene.packed, bk.planar_state(rays),
+        rng.bounce_uniforms(ctx.pixel_id, ctx.base0, ctx.base1, 0), 0, cfg)
+    keep = torch.from_numpy(gen.random(rays.count) > 1 / 3).to(cuda_device)
+    state = (*state[:7], state[7] * keep.to(torch.int32), *state[8:])
+    u4 = rng.bounce_uniforms(ctx.pixel_id, ctx.base0, ctx.base1, 1)
+    k0 = bk.bounce_step(scene.packed, state, u4, 1, cfg)
+    plain = bk.bounce_step_reference(scene.packed, state, u4, 1, cfg)
+    assert bool(state[7].any()) and not bool(state[7].all())
+    for k in range(14):
+        assert torch.equal(k0[k], plain[k]), f"row {k}"
+    assert (bk.KERNEL_BVH_LAUNCHES, bk.PATH_BVH_LAUNCHES,
+            bk.BOUNCE_BVH_LAUNCHES) == tuple(b + 1 for b in before)
+
+
+@pytest.mark.cuda
+def test_walk_ties_match_plain_on_card(cuda_device):
+    """Triangles copied into a second leaf (tests/test_torch_walk.py): where
+    a ray meets one in two leaves at equal t, the warp's split scan keeps
+    the lower column as the plain walk does. K2 and K0 on rays from inside
+    the sphere aimed at the copies, and K1 from the camera, bit for bit."""
+    from raytracingthenextweekcuda_tpu_torch.apps import bench_scenes
+
+    inp, centroids = tie_inputs(cuda_device)
+    n = 4001
+    o, d = (torch.from_numpy(x).to(cuda_device) for x in inside_rays(centroids, n, 3))
+    gen = np.random.default_rng(6)
+    pid = torch.from_numpy(gen.permutation(n).astype(np.int32)).to(cuda_device)
+    path = bk.PathInputs(**inp.scene_fields(), origin=o, direction=d,
+                         time=torch.zeros(n, device=cuda_device), pid=pid,
+                         words=(12345, 678))
+    assert torch.equal(bk.path_kernel(path), bk.path_reference(path))
+    state = torch.cat([o.t(), d.t(), torch.zeros((1, n), device=cuda_device),
+                       torch.ones((3, n), device=cuda_device),
+                       torch.zeros((3, n), device=cuda_device)]).contiguous()
+    alive = torch.from_numpy((gen.random(n) > 0.2).astype(np.int32)).to(cuda_device)
+    step = bk.BounceInputs(**inp.scene_fields(), state=state, alive=alive,
+                           u4=torch.from_numpy(gen.random((n, 4), np.float32))
+                           .to(cuda_device), do_rr=False)
+    (out, live), (out_p, live_p) = bk.bounce_kernel(step), bk.bounce_reference(step)
+    assert torch.equal(out, out_p) and torch.equal(live, live_p)
+    _, camera, _ = bench_scenes.stress_mesh_scene()
+    render = bk.RenderInputs(**inp.scene_fields(), frame=tcam.pack_frame(
+        tcam.derive(camera, 1.0), cuda_device),
+        words=torch.from_numpy(np.asarray(threefry.split(threefry.key(4), 2),
+                                          np.uint32).reshape(-1, 2).view(np.int32)
+                               .copy()).to(cuda_device),
+        pid=torch.arange(64 * 64, dtype=torch.int32, device=cuda_device),
+        width=64, height=64)
+    assert torch.equal(bk.render_kernel(render), bk.render_reference(render))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_bvh", [False, True], ids=["boxes", "walk"])
+@pytest.mark.parametrize("n", [1000, 4001, 512 * 512])
+def test_k2_regeneration_matches_plain_on_card(n, use_bvh, cuda_device):
+    """K2 on its persistent grid, where path lengths are most uneven
+    (Cornell, Russian roulette from bounce 2, the sky off), without and with
+    the tile-BVH walk: below one resident grid (1,000 rays; 4,001, not a
+    multiple of 32) and above it (512x512, about two rays a lane, so lanes
+    start new rays mid-launch). Bit for bit against the plain version."""
+    scene, camera = tpresets.cornell_box()
+    scene = finalize(scene, use_bvh=use_bvh)
+    cfg = RenderConfig(width=512, height=512, spp=1, bounces=10,
+                       russian_roulette=True, rr_start_bounce=2,
+                       sky_background=False)
+    rays, ctx = _head(*tcam.generate_rays(
+        tcam.derive(camera, 1.0), threefry.split(threefry.key(9), 1)[0], 512, 512,
+        device=cuda_device), n)
+    before = (bk.PATH_LAUNCHES, bk.PATH_BVH_LAUNCHES)
+    out = bk.path_trace(scene.packed, rays, ctx, cfg)
+    assert (bk.PATH_LAUNCHES, bk.PATH_BVH_LAUNCHES) == (before[0] + 1,
+                                                        before[1] + use_bvh)
+    assert torch.equal(out, bk.path_trace_reference(scene.packed, rays, ctx, cfg))
+    assert float(out.sum()) > 0.0
+
+
+@pytest.mark.cuda
+def test_k2_zero_bounces_on_card(cuda_device):
+    """K2 with no bounce writes zero radiance for every ray, as the plain
+    version."""
+    scene, rays, ctx = _primary("cornell_box", 32, cuda_device)
+    cfg = RenderConfig(width=32, height=32, spp=1, bounces=0)
+    out = bk.path_trace(scene.packed, rays, ctx, cfg)
+    assert torch.equal(out, bk.path_trace_reference(scene.packed, rays, ctx, cfg))
+    assert not bool(out.any())
