@@ -39,8 +39,8 @@ Phases, each printing one line or more:
  10. K2 and K0 vs plain: K2 against its plain version on the same CUDA
      tensors on the Cornell primary wavefront (512x512, one sample, 10
      bounces, about two rays a lane of its persistent grid) and on the 5
-     presets at 64x64, bit for bit; K0 for one bounce with do_rr 0 and 1
-     (rtol = atol = 1e-4); then
+     presets at 64x64, bit for bit; K0 for one bounce with do_rr 0 and 1,
+     bit for bit; then
      K0's main path, a wavefront traced by ten bounce_step calls, counting
      K0's launches, against K2 on the same rays (1e-4);
  11. G-buffer main path: render_gbuffer on Cornell (512x512, 8 spp, 10
@@ -54,8 +54,9 @@ Phases, each printing one line or more:
      sphere centres on the card against the CPU's (rtol 1e-3); a backward
      through a fused render raises; run_fit and run_fit_mesh for 10 steps
      at their 96x96, 8 spp configuration, the sphere fit's loss falling;
- 13. times: K2 and K0 beside their plain versions (CUDA events; plain:
-     host clock), K1 after the bounce refactor, and on the host clock the
+ 13. times: K2 and K0 beside their plain versions (CUDA events, and for
+     K0, which runs shorter than its enqueue, the profiler's device time;
+     plain: host clock), K1 after the bounce refactor, and on the host clock the
      G-buffer render, the fused_bounce=False render, one fit step and the
      backward of a 512x512, 10-bounce G-buffer with its peak memory;
  14. the tile-BVH walk vs plain: K1, K2 and K0 on the tile-BVH packs of
@@ -81,7 +82,15 @@ Phases, each printing one line or more:
      (rtol 1e-3); the walk against the brute-force test on the card on
      primary and random rays (the same hits); the same scene finalized
      (K3 over the pack, the walk merged on top) on the card against the
-     CPU (1e-4), counting K3's launches.
+     CPU (1e-4), counting K3's launches;
+ 17. scene files through the CLI (`cli.main`): `render --scene
+     scenes/cornellbox.yaml` at its defaults (512x512, 32 spp, 10 bounces,
+     one K1 launch) and the same file with assets/models/sphere_hi.obj
+     added (3,992 triangles, a tile-BVH: 16 spp, K3 and K4 launches), each
+     also rendered small on the card against the CPU (1e-4 but for at
+     most 1 value in 10^4); `--checkpoint` stopped after its first pass
+     and resumed, bit for bit against a straight render on the card;
+     `--progressive`, a PNG after every pass.
 
 Every kernel's time stands beside its CTAs resident on one SM (its
 occupancy query at the launch's shared memory) and the waves its grid
@@ -98,12 +107,28 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import pathlib
 import re
 import tempfile
 import time
 
 import numpy as np
 import torch
+
+
+ROOT = pathlib.Path(__file__).resolve().parent
+# Appended to scenes/cornellbox.yaml: the repository's 3,968-triangle sphere,
+# which takes the scene above the tile-BVH threshold.
+SPHERE_HI_ENTRY = """  - mesh: # the 3,968-triangle sphere
+      type: 2
+      model: sphere_hi.obj
+      scale: [0.24, 0.24, 0.24]
+      rotate: [0.0, 20.0, 0.0]
+      offset: [0.2, 0.25, 0.1]
+      materialId: 6
+      material: {type: 1, albedo: [1.0, 1.0, 1.0], fuzz: 0.0}
+"""
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -117,6 +142,26 @@ def _event_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _profiled_ms(fn, kernel: str, reps: int) -> float:
+    """Mean device milliseconds a launch of the kernels named `kernel`
+    (without the tile-BVH walk) over `reps` runs of `fn`, from
+    torch.profiler, after one warmup."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if kernel in e.key and "<true>" not in e.key]
+    launches = sum(e.count for e in events)
+    if not launches:
+        raise AssertionError(f"no {kernel} device time in the profiler's trace")
+    return sum(e.device_time_total for e in events) / 1e3 / launches
 
 
 def _host_ms(fn) -> tuple[float, object]:
@@ -695,12 +740,12 @@ def main() -> None:
         plain = bk.bounce_step_reference(cornell.packed, state, u4, do_rr, rr_cfg)
         if not torch.equal(k0[7], plain[7]):
             raise AssertionError(f"K0 do_rr={do_rr}: alive flags differ")
-        err = max(_check_close(f"K0 do_rr={do_rr} row {r}", k0[r], plain[r])
+        err = max(_check_same(f"K0 do_rr={do_rr} row {r}", k0[r], plain[r])
                   for r in range(14))
         k0_err = max(k0_err, err)
         print(f"[10 K0 vs plain] cornell 512x512, bounce 2, do_rr={do_rr}: "
               f"alive equal ({int(k0[7].sum())} of {rays.count} go on), "
-              f"max|diff| {err:.3e} (rtol=atol=1e-4)", flush=True)
+              f"max|diff| {err:.3e} (bit for bit)", flush=True)
     bk.BOUNCE_LAUNCHES = 0
     carry = bk.planar_state(rays)
     for b in range(head.bounces):
@@ -843,7 +888,10 @@ def main() -> None:
     k2_ms = _event_ms(lambda: bk.path_kernel(path_inp), reps=10)
     k2p_ms, _ = _host_ms(lambda: bk.path_reference(path_inp))
     k0_inp = bk.bounce_inputs(cornell.packed, state, u4, 1, rr_cfg)
-    k0_ms = _event_ms(lambda: bk.bounce_kernel(k0_inp), reps=10)
+    k0_events_ms = _event_ms(lambda: bk.bounce_kernel(k0_inp), reps=10)
+    # K0 runs for about 27 µs, less than the host takes to enqueue it, so
+    # its events time the host: its own time is the profiler's device time.
+    k0_ms = _profiled_ms(lambda: bk.bounce_kernel(k0_inp), "bounce_kernel", 20)
     work.reset()
     k0p_ms, _ = _host_ms(lambda: bk.bounce_reference(k0_inp))
     k0_bound = _step_bound(k0_inp, work.WORK)
@@ -870,7 +918,8 @@ def main() -> None:
                         k0_inp.alive.numel())
     print(f"[13 times] K2 {k2_ms:.4f} ms vs plain {k2p_ms:.1f} ms (cornell "
           f"512x512 primary wavefront, 10 bounces; {_res(k2_occ)}) | K0 "
-          f"{k0_ms:.4f} ms vs plain {k0p_ms:.2f} ms (one bounce, 262144 rays; "
+          f"{k0_ms:.4f} ms device (torch.profiler; CUDA events {k0_events_ms:.4f} ms"
+          f", the host's enqueue) vs plain {k0p_ms:.2f} ms (one bounce, 262144 rays; "
           f"{_res(k0_occ)}) | K1 {k1_ms:.3f} ms (headline, phase 5) | CUDA "
           f"events; plain: host clock, one run | {card}", flush=True)
     print(f"[13 times] host clock: G-buffer 512x512, 8 spp, 10 bounces "
@@ -1032,7 +1081,8 @@ def main() -> None:
     k0b = bk.bounce_kernel(k0b_inp)
     if not torch.equal(k0b[1], plain[1]):
         raise AssertionError("K0-BVH 512x512: alive flags differ")
-    bvh_err["K0"] = max(bvh_err["K0"], _check_same("K0-BVH 512x512", k0b[0], plain[0]))
+    bvh_err["K0"] = max(bvh_err["K0"], _check_same(
+        "K0-BVH 512x512", torch.stack(k0b[0]), torch.stack(plain[0])))
     k1b_occ = _residency("rtnw_render_occupancy", (0, 1, *inp.counts),
                          inp.pid.numel())
     k2b_occ = _residency("rtnw_render_occupancy", (1, 1, *mpath.counts),
@@ -1179,6 +1229,115 @@ def main() -> None:
           f"mesh test included) | K3 launches {fin_k3}, LBVH walk steps "
           f"{fin_steps} | card vs CPU max|diff| {fin_err:.3e} "
           f"(rtol=atol=1e-4) | {card}", flush=True)
+
+    # 17. scene files through the CLI: `render --scene` (K1 on Cornell; K3
+    # and K4 on a scene with the 3,968-triangle sphere), each also on the
+    # card against the CPU; `--checkpoint` stopped and resumed against a
+    # straight render; `--progressive` writes the PNG after every pass.
+    from raytracingthenextweekcuda_tpu_torch import cli
+    from raytracingthenextweekcuda_tpu_torch.io import image as image_io
+    from raytracingthenextweekcuda_tpu_torch.io.yaml_scene import load_scene
+    from raytracingthenextweekcuda_tpu_torch.models.checkpoint import load_render_state
+
+    def card_vs_cpu(name, scene, camera, size, spp):
+        cfg = RenderConfig(width=size, height=size, spp=spp, bounces=10)
+        card = integrator.render(scene, camera, cfg, device=dev).accum.cpu().numpy()
+        cpu = integrator.render(scene, camera, cfg, device="cpu").accum.numpy()
+        if not np.isfinite(card).all():
+            raise AssertionError(f"{name}: the card's render is not finite")
+        off = ~np.isclose(card, cpu, rtol=1e-4, atol=1e-4)
+        if off.mean() > 1e-4:
+            raise AssertionError(f"{name} card vs CPU: {int(off.sum())} of {off.size} "
+                                 f"values apart")
+        return int(off.sum()), off.size, float(np.abs(card - cpu).max())
+
+    cornell_yaml = str(ROOT / "scenes" / "cornellbox.yaml")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/cornell.png"
+        bk.KERNEL_LAUNCHES = bk.KERNEL_BVH_LAUNCHES = k3.KERNEL_LAUNCHES = 0
+        scene_ms, rc = _host_ms(lambda: cli.main(["render", "--scene", cornell_yaml,
+                                                  "--out", out]))
+        k1_scene = bk.KERNEL_LAUNCHES
+        if rc != 0 or k1_scene != 1 or bk.KERNEL_BVH_LAUNCHES or k3.KERNEL_LAUNCHES:
+            raise AssertionError(f"render --scene cornellbox.yaml: rc {rc}, K1 "
+                                 f"launches {k1_scene} ({bk.KERNEL_BVH_LAUNCHES} with "
+                                 f"the walk), K3 {k3.KERNEL_LAUNCHES}")
+        img = image_io.read_png(out).astype(np.float64)
+        left = img[170:340, 0:40].reshape(-1, 3).mean(0)
+        right = img[170:340, -40:].reshape(-1, 3).mean(0)
+        if img.shape != (512, 512, 3) or not (left[0] > left[2] and right[2] > right[0]):
+            raise AssertionError(f"render --scene cornellbox.yaml: image {img.shape}, "
+                                 f"left wall {left}, right wall {right}")
+        yscene, ycam = load_scene(cornell_yaml)
+        yscene = finalize(yscene)
+        off, size, err = card_vs_cpu("cornellbox.yaml 64x64", yscene, ycam, 64, 4)
+        k1_err = max(k1_err, err)
+        print(f"[17 --scene] render --scene scenes/cornellbox.yaml (512x512, 32 spp, "
+              f"10 bounces, one pass) through cli.main: {scene_ms:.1f} ms host, K1 "
+              f"launches {k1_scene} | left wall rgb {left.round(1).tolist()} right wall"
+              f" rgb {right.round(1).tolist()} | 64x64, 4 spp on the card vs the CPU: "
+              f"{off} of {size} values apart by > 1e-4, max|diff| {err:.3e} | {card}",
+              flush=True)
+
+        # The Cornell file with the sphere mesh added: 3,992 triangles, so
+        # the tile-BVH and the sorted wavefront.
+        hi_yaml = f"{tmp}/sphere_hi.yaml"
+        with open(hi_yaml, "w") as f:
+            f.write(open(cornell_yaml).read() + SPHERE_HI_ENTRY)
+        k3.KERNEL_LAUNCHES = k4.KERNEL_LAUNCHES = bk.KERNEL_LAUNCHES = 0
+        hi_ms, rc = _host_ms(lambda: cli.main(["render", "--scene", hi_yaml, "--spp",
+                                               "16", "--out", f"{tmp}/hi.png"]))
+        k3_hi, k4_hi = k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES
+        if rc != 0 or k3_hi <= 0 or k4_hi <= 0 or bk.KERNEL_LAUNCHES:
+            raise AssertionError(f"render --scene with sphere_hi.obj: rc {rc}, K3 "
+                                 f"{k3_hi}, K4 {k4_hi}, K1 {bk.KERNEL_LAUNCHES}")
+        hscene, hcam = load_scene(hi_yaml)
+        hi_triangles = hscene.triangles.count
+        hscene = finalize(hscene)
+        off, size, err = card_vs_cpu("sphere_hi 32x32", hscene, hcam, 32, 2)
+        k3_err, k4_err = max(k3_err, err), max(k4_err, err)
+        print(f"[17 --scene] the same file with assets/models/sphere_hi.obj "
+              f"({hi_triangles} triangles in "
+              f"{hscene.packed.leaf_tiles.shape[1]} tile-BVH leaves), 512x512, 16 spp, "
+              f"10 bounces through cli.main: {hi_ms:.1f} ms host, K3 launches {k3_hi},"
+              f" K4 launches {k4_hi} | 32x32, 2 spp on the card vs the CPU: {off} of "
+              f"{size} values apart by > 1e-4, max|diff| {err:.3e}", flush=True)
+
+        ck = f"{tmp}/render.npz"
+        resume = ["render", "--scene", cornell_yaml, "--spp-per-pass", "8",
+                  "--checkpoint", ck, "--out", out]
+        if cli.main(resume + ["--spp", "8"]) != 0 or load_render_state(ck)[2] != 1:
+            raise AssertionError("--checkpoint: the first pass was not saved")
+        bk.KERNEL_LAUNCHES = 0
+        if cli.main(resume + ["--spp", "16"]) != 0 or bk.KERNEL_LAUNCHES != 1:
+            raise AssertionError(f"--checkpoint: the resumed render launched K1 "
+                                 f"{bk.KERNEL_LAUNCHES} times (1 pass was left)")
+        resumed, _, done = load_render_state(ck, device=dev)
+        straight = integrator.render(yscene, ycam, RenderConfig(
+            width=512, height=512, spp=16, bounces=10, spp_per_pass=8), device=dev)
+        if done != 2 or not torch.equal(resumed.accum, straight.accum):
+            raise AssertionError("--checkpoint: the resumed film differs from a "
+                                 "straight render")
+        writes = []
+        write_png = image_io.write_png
+
+        def recorded(path, image):
+            write_png(path, image)
+            writes.append(os.path.exists(path))
+
+        image_io.write_png = recorded
+        try:
+            rc = cli.main(["render", "--scene", cornell_yaml, "--spp-per-pass", "8",
+                           "--progressive", "--out", f"{tmp}/progressive.png"])
+        finally:
+            image_io.write_png = write_png
+        if rc != 0 or len(writes) != 5 or not all(writes):
+            raise AssertionError(f"--progressive: {len(writes)} writes (4 passes and "
+                                 f"the last), files there {writes}")
+        print(f"[17 --checkpoint] cornellbox.yaml 512x512, 2 passes of 8 spp: stopped "
+              f"after pass 1 and resumed (1 K1 launch), the film bit for bit equal to "
+              f"a straight render on the card | --progressive: the PNG written after "
+              f"each of 4 passes and at the end", flush=True)
 
     k3_ms, k3p_ms, k4_ms, k4p_ms = times["primary"]
     k3_bound, k4_bound = bounds["primary"]

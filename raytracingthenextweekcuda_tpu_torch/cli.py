@@ -2,6 +2,9 @@
 raytracingthenextweekcuda_tpu/cli.py):
 
     rtnw-torch render --preset cornell --width 512 --height 512 --spp 32 --out render.png
+    rtnw-torch render --scene scenes/cornellbox.yaml [--bvh] [--seed 1984]
+                      [--spp-per-pass 8] [--russian-roulette] [--progressive]
+                      [--checkpoint render.npz] [--debug-nan]
     rtnw-torch bench  [--width 512 --height 512 --spp 128 --bounces 10]
     rtnw-torch bench --mesh   # tile-BVH mesh path, 512x512, 32 spp, 10 bounces
     rtnw-torch fit    [--steps 60] [--out fit.png]       # inverse rendering
@@ -16,12 +19,15 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 
 
-def _build_scene(name: str):
+def _build_scene(args):
     from raytracingthenextweekcuda_tpu_torch.models import presets
 
+    if args.scene:
+        from raytracingthenextweekcuda_tpu_torch.io.yaml_scene import load_scene
+
+        return load_scene(args.scene)
     table = {
         "cornell": presets.cornell_box,
         "cornell-empty": lambda: presets.cornell_box(with_spheres=False,
@@ -32,6 +38,7 @@ def _build_scene(name: str):
         "mesh": presets.mesh_showcase,
         "smallpt": presets.smallpt_spheres,
     }
+    name = args.preset or "cornell"
     if name not in table:
         raise SystemExit(f"unknown preset '{name}' (choose from {sorted(table)})")
     return table[name]()
@@ -42,25 +49,44 @@ def cmd_render(args) -> int:
 
     from raytracingthenextweekcuda_tpu_torch.config import RenderConfig
     from raytracingthenextweekcuda_tpu_torch.io.image import write_png
-    from raytracingthenextweekcuda_tpu_torch.models import integrator
+    from raytracingthenextweekcuda_tpu_torch.models.checkpoint import render_resumable
     from raytracingthenextweekcuda_tpu_torch.models.film import to_image
     from raytracingthenextweekcuda_tpu_torch.models.scene import finalize
+    from raytracingthenextweekcuda_tpu_torch.utils.log import report_devices
+    from raytracingthenextweekcuda_tpu_torch.utils.progress import Progress
+    from raytracingthenextweekcuda_tpu_torch.utils.timing import Timer, throughput
 
-    scene, camera = _build_scene(args.preset)
-    scene = finalize(scene)  # a tile-BVH above 256 triangles
+    print(report_devices(), file=sys.stderr)  # Utils::queryDeviceProperties
+    scene, camera = _build_scene(args)
+    # --bvh forces the tile-BVH, as the reference's code does (its help
+    # text says LBVH); without it, a tile-BVH above 256 triangles.
+    scene = finalize(scene, use_bvh=True if args.bvh else None)
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
-                       bounces=args.bounces)
+                       bounces=args.bounces, spp_per_pass=args.spp_per_pass,
+                       russian_roulette=args.russian_roulette, seed=args.seed)
     device = torch.device(args.device)
-    print(f"rendering {cfg.width}x{cfg.height} spp={cfg.spp} "
-          f"bounces={cfg.bounces} on {device}", file=sys.stderr)
-    t0 = time.perf_counter()
-    film = integrator.render(scene, camera, cfg, device=device)
-    image = to_image(film)  # copies to the host, so the render has finished
-    dt = time.perf_counter() - t0
-    write_png(args.out, image)
-    print(f"rendered in {dt * 1000:.1f} ms "
-          f"({cfg.num_pixels * cfg.spp / dt / 1e6:.2f} Mpaths/s) -> {args.out}",
-          file=sys.stderr)
+    passes = cfg.passes()
+    print(f"rendering {cfg.width}x{cfg.height} spp={cfg.spp} bounces={cfg.bounces} "
+          f"in {len(passes)} passes on {device}", file=sys.stderr)
+    progress = Progress(len(passes))  # 10%-step prints (main.cu:197-203)
+    timer = Timer().start()
+
+    def after_pass(i, film):
+        if args.debug_nan and not bool(torch.isfinite(film.accum).all()):
+            raise FloatingPointError(f"pass {i}: the film holds a NaN or an infinity")
+        if args.progressive:  # the realtime frontend's accumulate protocol
+            write_png(args.out, to_image(film))
+            print(f"  pass {i}: {film.sample_count} spp, "
+                  f"{timer.stop(film):.0f} ms -> {args.out}", file=sys.stderr)
+        progress.update()
+
+    film = render_resumable(scene, camera, cfg, args.checkpoint, device=device,
+                            after_pass=after_pass)
+    ms = timer.stop(film)
+    write_png(args.out, to_image(film))
+    print(f"rendered in {ms:.1f} ms "
+          f"({throughput(cfg.num_pixels * cfg.spp, ms) / 1e6:.2f} Mpaths/s) -> "
+          f"{args.out}", file=sys.stderr)
     return 0
 
 
@@ -98,12 +124,27 @@ def main(argv=None) -> int:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="command", required=True)
 
-    pr = sub.add_parser("render", help="render a preset to PNG")
-    pr.add_argument("--preset", default="cornell", help="built-in scene preset")
+    pr = sub.add_parser("render", help="render a scene file or a preset to PNG")
+    pr.add_argument("--scene", help="YAML scene file (the reference's schema)")
+    pr.add_argument("--preset", help="built-in scene preset (default cornell)")
     pr.add_argument("--width", type=int, default=512)
     pr.add_argument("--height", type=int, default=512)
     pr.add_argument("--spp", type=int, default=32)
     pr.add_argument("--bounces", type=int, default=10)
+    pr.add_argument("--spp-per-pass", type=int, default=0,
+                    help="samples a pass (one K1 launch); 0 = all at once")
+    pr.add_argument("--seed", type=int, default=1984)
+    pr.add_argument("--russian-roulette", action="store_true")
+    pr.add_argument("--bvh", action="store_true",
+                    help="render meshes through a tile-BVH whatever their size")
+    pr.add_argument("--progressive", action="store_true",
+                    help="rewrite the PNG after every pass")
+    pr.add_argument("--checkpoint", metavar="PATH",
+                    help="save the film here after each pass; resume from it "
+                         "if it exists and matches the scene and camera")
+    pr.add_argument("--debug-nan", action="store_true",
+                    help="raise after a pass that leaves a NaN or an infinity "
+                         "in the film")
     pr.add_argument("--device", default="cuda")
     pr.add_argument("--out", default="render.png")
     pr.set_defaults(fn=cmd_render)

@@ -15,7 +15,7 @@
 //   grid and regenerates as K1 does (see below).
 // - K0 `bounce_kernel` replaces _bounce_kernel (_run_bounce, bounce_step):
 //   one thread advances one ray of the planar carry by one bounce, on
-//   uniforms read from memory.
+//   uniforms read from memory (see the comment above the kernel).
 // A bounce is the closest hit over spheres, planes, Havel triangles, Havel
 // quads and oriented boxes, in that order; the 8-kind BSDF; sky, additive
 // emission and emission termination; optional Russian roulette.
@@ -864,18 +864,69 @@ path_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
   }
 }
 
-// K0: one bounce over the planar carry. `state` is (13, n) rows ox oy oz
-// dx dy dz tm tpx tpy tpz rx ry rz, `u4` (n, 4); `out` is (12, n), the
-// carry without tm, and `alive_out` the continue flag. Dead rays pass
-// through with alive 0. With the tile-BVH walk every lane of a warp stays
-// for the vote on who walks, those past n included.
+// K0's planar carry as row pointers, each row (n,) float32: the 13 input
+// rows ox oy oz dx dy dz tm tpx tpy tpz rx ry rz, and the 12 output rows
+// (the same without tm).
+struct Carry {
+  const float* in[13];
+  float* out[12];
+};
+
+// One ray of K0: its carry, alive flag and the bounce's four uniforms.
+struct StepRay {
+  Path p;
+  float tm;
+  bool live;
+  float4 u;
+};
+
+__device__ __forceinline__ void load_step(const Carry& c, const int32_t* alive,
+                                          const float4* u4, int i, StepRay& r) {
+  r.p.ox = __ldg(c.in[0] + i); r.p.oy = __ldg(c.in[1] + i);
+  r.p.oz = __ldg(c.in[2] + i);
+  r.p.dx = __ldg(c.in[3] + i); r.p.dy = __ldg(c.in[4] + i);
+  r.p.dz = __ldg(c.in[5] + i);
+  r.tm = __ldg(c.in[6] + i);
+  r.p.tpx = __ldg(c.in[7] + i); r.p.tpy = __ldg(c.in[8] + i);
+  r.p.tpz = __ldg(c.in[9] + i);
+  r.p.rx = __ldg(c.in[10] + i); r.p.ry = __ldg(c.in[11] + i);
+  r.p.rz = __ldg(c.in[12] + i);
+  r.live = __ldg(alive + i) != 0;
+  r.u = __ldg(u4 + i);
+}
+
+__device__ __forceinline__ void store_step(const Carry& c, int32_t* alive_out, int i,
+                                           const Path& p, bool cont) {
+  c.out[0][i] = p.ox; c.out[1][i] = p.oy; c.out[2][i] = p.oz;
+  c.out[3][i] = p.dx; c.out[4][i] = p.dy; c.out[5][i] = p.dz;
+  c.out[6][i] = p.tpx; c.out[7][i] = p.tpy; c.out[8][i] = p.tpz;
+  c.out[9][i] = p.rx; c.out[10][i] = p.ry; c.out[11][i] = p.rz;
+  alive_out[i] = cont ? 1 : 0;
+}
+
+// K0: one bounce over the planar carry `c`, one ray a thread, with the
+// uniforms `u4` (n, float4) and the continue flag written to `alive_out`.
+// Dead rays pass through with alive 0. With the tile-BVH walk every lane of
+// a warp stays for the vote on who walks, those past n included.
+//
+// What bounds it is the bounce's own work, not its 124 bytes a ray
+// (tools/k0_steps.py on an H100 SXM at 700 W, PERF.md): on the 262,144-ray
+// Cornell wavefront the bounce alone, run again on loaded rays with nothing
+// stored, takes 23 µs a launch, against 5.6-5.9 µs for the same reads and
+// writes without it (12.6-12.8 µs from a cold L2) and a 9.7 µs bytes bound;
+// the whole kernel takes 26.5-27.2 µs. So overlapping loads with bounces
+// has at most 4 µs to gain, and a persistent grid that copies each
+// thread's next ray into shared memory (cp.async) during the current
+// bounce was slower (29.5-30.7 µs): the two waves of one ray a thread that
+// the card schedules CTA by CTA overlap them already. K0 keeps that grid,
+// takes the carry as row pointers (no stack of the rows before a launch)
+// and reads the uniforms as one float4.
 template <bool kBvh>
 __global__ void __launch_bounds__(kThreads)
 bounce_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
-              int nb, int n_floats, int use_smem, MeshArgs mesh,
-              const float* __restrict__ state,
-              const int32_t* __restrict__ alive, const float* __restrict__ u4,
-              int n, int do_rr, float tmin, int flags, float* __restrict__ out,
+              int nb, int n_floats, int use_smem, MeshArgs mesh, Carry c,
+              const int32_t* __restrict__ alive, const float4* __restrict__ u4,
+              int n, int do_rr, float tmin, int flags,
               int32_t* __restrict__ alive_out) {
   extern __shared__ float smem[];
   const Scene s = load_scene(scene_g, smem, ns, np, nt, nq, nb, n_floats, use_smem,
@@ -884,32 +935,16 @@ bounce_kernel(const float* __restrict__ scene_g, int ns, int np, int nt, int nq,
   if (!kBvh && i >= n) return;
   const bool in = i < n;
   const Flags fl = decode_flags(flags);
-  Path path;
-  float tm = 0.0f;
-  bool live = false;
-  if (in) {
-    path.ox = state[i]; path.oy = state[n + i]; path.oz = state[2 * n + i];
-    path.dx = state[3 * n + i]; path.dy = state[4 * n + i];
-    path.dz = state[5 * n + i];
-    tm = state[6 * n + i];
-    path.tpx = state[7 * n + i]; path.tpy = state[8 * n + i];
-    path.tpz = state[9 * n + i];
-    path.rx = state[10 * n + i]; path.ry = state[11 * n + i];
-    path.rz = state[12 * n + i];
-    live = alive[i] != 0;
-  }
+  StepRay r;
+  r.live = false;
+  if (in) load_step(c, alive, u4, i, r);
   // The live rays walk the tile-BVH together.
-  const unsigned walkers = kBvh ? __ballot_sync(kFull, live) : 0u;
+  const unsigned walkers = kBvh ? __ballot_sync(kFull, r.live) : 0u;
   bool cont = false;
-  if (live)
-    cont = bounce<kBvh>(s, path, tm, u4[4 * i], u4[4 * i + 1], u4[4 * i + 2],
-                        u4[4 * i + 3], fl.rr && do_rr != 0, fl, tmin, walkers);
-  if (!in) return;
-  out[i] = path.ox; out[n + i] = path.oy; out[2 * n + i] = path.oz;
-  out[3 * n + i] = path.dx; out[4 * n + i] = path.dy; out[5 * n + i] = path.dz;
-  out[6 * n + i] = path.tpx; out[7 * n + i] = path.tpy; out[8 * n + i] = path.tpz;
-  out[9 * n + i] = path.rx; out[10 * n + i] = path.ry; out[11 * n + i] = path.rz;
-  alive_out[i] = cont ? 1 : 0;
+  if (r.live)
+    cont = bounce<kBvh>(s, r.p, r.tm, r.u.x, r.u.y, r.u.z, r.u.w,
+                        fl.rr && do_rr != 0, fl, tmin, walkers);
+  if (in) store_step(c, alive_out, i, r.p, cont);
 }
 
 // Shared-memory use of a launch: the scene rows when they fit in 48 KB.
@@ -987,15 +1022,20 @@ extern "C" int rtnw_path_trace(const float* scene, int n_sph, int n_pla,
   return (int)cudaGetLastError();
 }
 
+// `rows_in` and `rows_out` are host arrays of the carry's 13 input and 12
+// output row pointers (see Carry).
 extern "C" int rtnw_bounce_step(const float* scene, int n_sph, int n_pla,
                                 int n_trih, int n_quad, int n_box,
                                 const float* bvh_b, const int32_t* bvh_m,
                                 const int32_t* bvh_c, const float* trih,
                                 const float* aos, int n_nodes, int trih_cols,
-                                const float* state, const int32_t* alive,
+                                const float* const* rows_in,
+                                float* const* rows_out, const int32_t* alive,
                                 const float* u4, int n, int do_rr, float tmin,
-                                int flags, float* out, int32_t* alive_out,
-                                void* stream) {
+                                int flags, int32_t* alive_out, void* stream) {
+  Carry c;
+  for (int k = 0; k < 13; ++k) c.in[k] = rows_in[k];
+  for (int k = 0; k < 12; ++k) c.out[k] = rows_out[k];
   const int n_floats = scene_floats(n_sph, n_pla, n_trih, n_quad, n_box);
   const size_t bytes = smem_bytes(n_floats);
   const int blocks = (n + kThreads - 1) / kThreads;
@@ -1003,7 +1043,7 @@ extern "C" int rtnw_bounce_step(const float* scene, int n_sph, int n_pla,
   auto kernel = n_nodes > 0 ? bounce_kernel<true> : bounce_kernel<false>;
   kernel<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
       scene, n_sph, n_pla, n_trih, n_quad, n_box, n_floats, bytes > 0 ? 1 : 0,
-      mesh, state, alive, u4, n, do_rr, tmin, flags, out, alive_out);
+      mesh, c, alive, (const float4*)u4, n, do_rr, tmin, flags, alive_out);
   return (int)cudaGetLastError();
 }
 

@@ -55,6 +55,21 @@ class Camera:
                       time0=_t(time0), time1=_t(time1))
 
     @staticmethod
+    def from_yaml_block(block: dict) -> "Camera":
+        """The reference's YAML camera block: eye/center/up/aperture/fov,
+        focusDistance = |center - eye| (main.cu:632-638) and the shutter
+        [0, 1]."""
+        eye = np.asarray(block["eye"], np.float32)
+        center = np.asarray(block["center"], np.float32)
+        focus = float(np.linalg.norm(center - eye))
+        return Camera.make(
+            eye=eye, center=center,
+            up=np.asarray(block.get("up", (0.0, 1.0, 0.0)), np.float32),
+            fov=float(block.get("fov", 90.0)),
+            aperture=float(block.get("aperture", 0.0)),
+            focus_distance=focus, time0=0.0, time1=1.0)
+
+    @staticmethod
     def from_numpy(arrays: dict) -> "Camera":
         """A Camera from arrays keyed by field name (a reference Camera's
         leaves, for instance)."""

@@ -30,6 +30,7 @@ plain version on the CPU and the kernel on the card give the same image.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -489,11 +490,13 @@ class PathInputs(SceneInputs):
 
 @dataclasses.dataclass(frozen=True)
 class BounceInputs(SceneInputs):
-    """What K0 reads: the planar carry of N rays and one bounce's draws."""
+    """What K0 reads: the planar carry of N rays and one bounce's draws.
+    The carry is 13 separate rows, so a trace of `bounce_step` calls hands
+    each call's output rows to the next without a copy."""
 
-    state: torch.Tensor        # (13, N) float32: ox oy oz dx dy dz tm tp rgb rad rgb
+    carry: tuple               # 13 x (N,) float32: ox oy oz dx dy dz tm tp rgb rad rgb
     alive: torch.Tensor        # (N,) int32
-    u4: torch.Tensor           # (N, 4) float32
+    u4: torch.Tensor           # (N, 4) float32, 16-byte aligned
     do_rr: bool
 
 
@@ -613,12 +616,15 @@ def bounce_inputs(packed: PackedScene, state, u4, do_rr, cfg) -> BounceInputs:
     `planar_state`."""
     dev = state[0].device
     sc = scene_inputs(packed, cfg, dev)
-    floats = [state[k] for k in range(14) if k != 7]
+    u4 = u4.detach().float().contiguous()
+    if u4.data_ptr() % 16:  # a view into another buffer: K0 reads float4
+        u4 = u4.clone()
     return BounceInputs(
         **sc.scene_fields(),
-        state=torch.stack([x.detach().float() for x in floats]).contiguous(),
+        carry=tuple(state[k].detach().float().contiguous()
+                    for k in range(14) if k != 7),
         alive=state[7].detach().to(torch.int32).contiguous(),
-        u4=u4.detach().float().contiguous(),
+        u4=u4,
         do_rr=bool(do_rr),
     )
 
@@ -722,11 +728,10 @@ def planar_state(rays: Rays) -> tuple:
             ones, ones, ones, zeros, zeros, zeros)
 
 
-def _carry(inp: BounceInputs, out: torch.Tensor, alive: torch.Tensor) -> tuple:
-    """K0's (12, N) output and alive row back to the 14-tuple; the time
+def _carry(inp: BounceInputs, rows: tuple, alive: torch.Tensor) -> tuple:
+    """K0's 12 output rows and alive row back to the 14-tuple; the time
     row is the input's."""
-    rows = out.unbind(0)
-    return (*rows[0:6], inp.state[6], alive, *rows[6:12])
+    return (*rows[0:6], inp.carry[6], alive, *rows[6:12])
 
 
 def bounce_step(packed: PackedScene, state, u4, do_rr, cfg) -> tuple:
@@ -735,8 +740,11 @@ def bounce_step(packed: PackedScene, state, u4, do_rr, cfg) -> tuple:
     runs on it. Dead rays pass through unchanged with alive 0. K0 on a
     CUDA device, the plain version on the CPU."""
     inp = bounce_inputs(packed, state, u4, do_rr, cfg)
-    out, alive = bounce_kernel(inp)
-    return _carry(inp, guard(out, *state, u4), alive)
+    rows, alive = bounce_kernel(inp)
+    probe = grad_probe(*state, u4)  # once a call: the trace is host-bound
+    if not isinstance(probe, float):
+        rows = tuple(r + probe for r in rows)
+    return _carry(inp, rows, alive)
 
 
 def bounce_step_reference(packed: PackedScene, state, u4, do_rr, cfg) -> tuple:
@@ -765,8 +773,8 @@ def path_kernel(inp: PathInputs) -> torch.Tensor:
 
 
 def bounce_kernel(inp: BounceInputs) -> tuple:
-    """K0 or its plain version, by the inputs' device: ((12, N) float32
-    carry without the time row, (N,) int32 alive)."""
+    """K0 or its plain version, by the inputs' device: (the 12 (N,) float32
+    rows of the carry without the time row, (N,) int32 alive)."""
     return _dispatch(inp.alive.device, _launch_bounce, bounce_reference, inp)
 
 
@@ -891,27 +899,35 @@ def _launch_bounce(inp: BounceInputs) -> tuple:
 
     dev = inp.alive.device
     n = inp.alive.shape[0]
+    if len(inp.carry) != 13:
+        raise ValueError(f"K0 input carry: {len(inp.carry)} rows, expected 13")
     _check("K0", dev, (*_scene_specs(inp),
-                       (inp.state, torch.float32, (13, n)),
+                       *((row, torch.float32, (n,)) for row in inp.carry),
                        (inp.alive, torch.int32, (n,)),
                        (inp.u4, torch.float32, (n, 4))))
+    if inp.u4.data_ptr() % 16:
+        raise ValueError("K0 input u4: not aligned to 16 bytes")
     lib = build.load()
+    # One allocation for the 12 output rows, handed out as row views.
     out = torch.empty((12, n), dtype=torch.float32, device=dev)
     alive = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
-        return out, alive
+        return tuple(out.unbind(0)), alive
+    rows_in = (ctypes.c_void_p * 13)(*(row.data_ptr() for row in inp.carry))
+    base = out.data_ptr()
+    rows_out = (ctypes.c_void_p * 12)(*(base + 4 * n * k for k in range(12)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rtnw_bounce_step(
             inp.scene.data_ptr(), *inp.counts, *_mesh_args(inp),
-            inp.state.data_ptr(), inp.alive.data_ptr(), inp.u4.data_ptr(),
+            rows_in, rows_out, inp.alive.data_ptr(), inp.u4.data_ptr(),
             int(n), int(inp.do_rr), float(inp.tmin), inp.flags,
-            out.data_ptr(), alive.data_ptr(), stream,
+            alive.data_ptr(), stream,
         )
     _raise_on("K0", lib, err)
     BOUNCE_LAUNCHES += 1
     BOUNCE_BVH_LAUNCHES += inp.trih is not None
-    return out, alive
+    return tuple(out.unbind(0)), alive
 
 
 # --------------------------------------------------------------------------
@@ -1433,21 +1449,22 @@ def path_reference(inp: PathInputs) -> torch.Tensor:
 
 def bounce_reference(inp: BounceInputs) -> tuple:
     """Plain K0: one bounce on the live rays of the carry; the dead pass
-    through. Returns ((12, N) float32 carry without the time row, (N,)
-    int32 alive)."""
-    out = torch.cat([inp.state[0:6], inp.state[7:13]])
+    through. Returns (the 12 (N,) float32 rows of the carry without the
+    time row, (N,) int32 alive)."""
+    state = torch.stack(inp.carry)
+    out = torch.cat([state[0:6], state[7:13]])
     alive = torch.zeros_like(inp.alive)
     idx = torch.nonzero(inp.alive).flatten()
-    if idx.numel() == 0:
-        return out, alive
-    WORK["bounces"] += idx.numel()
-    live = inp.state[:, idx]
-    ray, tp, rad, cont = _bounce(tuple(live[0:7]), tuple(live[7:10]),
-                                 tuple(live[10:13]), tuple(inp.u4[idx].unbind(1)),
-                                 inp.do_rr, inp, inp.rows)
-    out[:, idx] = torch.stack([*ray[0:6], *tp, *rad])
-    alive[idx] = cont.to(torch.int32)
-    return out, alive
+    if idx.numel() > 0:
+        WORK["bounces"] += idx.numel()
+        live = state[:, idx]
+        ray, tp, rad, cont = _bounce(tuple(live[0:7]), tuple(live[7:10]),
+                                     tuple(live[10:13]),
+                                     tuple(inp.u4[idx].unbind(1)),
+                                     inp.do_rr, inp, inp.rows)
+        out[:, idx] = torch.stack([*ray[0:6], *tp, *rad])
+        alive[idx] = cont.to(torch.int32)
+    return tuple(out.unbind(0)), alive
 
 
 __all__ = [

@@ -158,9 +158,11 @@ def load() -> ctypes.CDLL:
             vp, vp, vp, vp, vp,      # tile-BVH: bounds, meta, real columns,
             ci, ci,                  # Havel rows and column vectors; nodes,
                                      # Havel columns
-            vp, vp, vp,              # state (13, n), alive (int32), u4 (n, 4)
+            vp, vp,                  # host arrays of the carry's 13 input
+                                     # and 12 output row pointers
+            vp, vp,                  # alive (int32), u4 (n, 4)
             ci, ci, cf, ci,          # n, do_rr, tmin, flags
-            vp, vp,                  # out (12, n) float, alive out (int32)
+            vp,                      # alive out (int32)
             vp,                      # cudaStream_t
         ]
         fn.restype = ci

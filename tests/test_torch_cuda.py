@@ -2,11 +2,13 @@
 K2 and K0 at rtol = atol = 1e-4, also on tile-BVH packs; K1 bit for bit
 where path lengths are most uneven; K1, K2 and K0 with the tile-BVH walk bit
 for bit on warps that walk with part of their lanes and on ties between
-leaves; K2 bit for bit on its persistent grid below and above one resident
-grid; K3 and K4 bit for bit, K4 also for every count of rays that need a
-leaf, on ties and on skipped prefetches), and renders (and one backward of
-the differentiable wavefront and of the LBVH regime) on the card against
-the same on the CPU. These tests skip without a card. The file imports no
+leaves; K2 bit for bit on its persistent grid below and above one
+resident grid, K0 from below a warp to above a resident grid; K3 and K4
+bit for bit, K4 also for every count of rays
+that need a leaf, on ties and on skipped prefetches), and renders (and one
+backward of the differentiable wavefront and of the LBVH regime, and a
+scene file through `render --scene`) on the card against the same on the
+CPU. These tests skip without a card. The file imports no
 jax, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -184,6 +186,47 @@ def test_k0_matches_plain_on_card(do_rr, cuda_device):
     for k in range(14):
         np.testing.assert_allclose(k0[k].cpu().numpy(), plain[k].cpu().numpy(),
                                    rtol=1e-4, atol=1e-4, err_msg=f"row {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("do_rr", [0, 1])
+@pytest.mark.parametrize("size", ["below_a_warp", "not_a_multiple",
+                                  "above_the_grid", "full"])
+def test_k0_matches_plain_on_card_by_size(size, do_rr, cuda_device):
+    """K0 without the walk, its carry as row pointers: 17 rays (below one
+    warp), 4,001 (not a multiple of 32), one ray more than a resident grid
+    holds (a second wave of one ray) and 512x512 (about two waves); about a
+    quarter of the rays dead, with and without Russian roulette. Every row
+    bit for bit against the plain version, the dead rays passed through."""
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
+
+    scene, rays, ctx = _primary("cornell_box", 512, cuda_device)
+    cfg = RenderConfig(width=512, height=512, spp=1, bounces=4,
+                       russian_roulette=True, rr_start_bounce=0)
+    ctas, threads = build.occupancy("rtnw_render_occupancy", 2, 0,
+                                    *bk.scene_inputs(scene.packed, cfg).counts)
+    resident = ctas * threads * torch.cuda.get_device_properties(0).multi_processor_count
+    n = {"below_a_warp": 17, "not_a_multiple": 4001, "above_the_grid": resident + 1,
+         "full": rays.count}[size]
+    assert n <= rays.count
+    rays, ctx = _head(rays, ctx, n)
+    state = bk.bounce_step_reference(
+        scene.packed, bk.planar_state(rays),
+        rng.bounce_uniforms(ctx.pixel_id, ctx.base0, ctx.base1, 0), 0, cfg)
+    gen = np.random.default_rng(n)
+    kill = torch.from_numpy(gen.random(n) < 0.25).to(cuda_device)
+    state = (*state[:7], torch.where(kill, 0, state[7]), *state[8:])
+    u4 = rng.bounce_uniforms(ctx.pixel_id, ctx.base0, ctx.base1, 1)
+    before = bk.BOUNCE_LAUNCHES
+    k0 = bk.bounce_step(scene.packed, state, u4, do_rr, cfg)
+    plain = bk.bounce_step_reference(scene.packed, state, u4, do_rr, cfg)
+    assert bk.BOUNCE_LAUNCHES == before + 1
+    for k in range(14):
+        assert torch.equal(k0[k], plain[k]), f"row {k}"
+    dead = state[7] == 0
+    assert bool(dead.any()) and not bool(k0[7][dead].any())
+    for k in (0, 3, 11):
+        assert torch.equal(k0[k][dead], state[k][dead])
 
 
 @pytest.mark.cuda
@@ -490,13 +533,16 @@ def test_walk_ties_match_plain_on_card(cuda_device):
     assert torch.equal(bk.path_kernel(path), bk.path_reference(path))
     state = torch.cat([o.t(), d.t(), torch.zeros((1, n), device=cuda_device),
                        torch.ones((3, n), device=cuda_device),
-                       torch.zeros((3, n), device=cuda_device)]).contiguous()
+                       torch.zeros((3, n), device=cuda_device)])
     alive = torch.from_numpy((gen.random(n) > 0.2).astype(np.int32)).to(cuda_device)
-    step = bk.BounceInputs(**inp.scene_fields(), state=state, alive=alive,
+    step = bk.BounceInputs(**inp.scene_fields(),
+                           carry=tuple(row.contiguous() for row in state),
+                           alive=alive,
                            u4=torch.from_numpy(gen.random((n, 4), np.float32))
                            .to(cuda_device), do_rr=False)
     (out, live), (out_p, live_p) = bk.bounce_kernel(step), bk.bounce_reference(step)
-    assert torch.equal(out, out_p) and torch.equal(live, live_p)
+    assert torch.equal(torch.stack(out), torch.stack(out_p))
+    assert torch.equal(live, live_p)
     _, camera, _ = bench_scenes.stress_mesh_scene()
     render = bk.RenderInputs(**inp.scene_fields(), frame=tcam.pack_frame(
         tcam.derive(camera, 1.0), cuda_device),
@@ -542,3 +588,32 @@ def test_k2_zero_bounces_on_card(cuda_device):
     out = bk.path_trace(scene.packed, rays, ctx, cfg)
     assert torch.equal(out, bk.path_trace_reference(scene.packed, rays, ctx, cfg))
     assert not bool(out.any())
+
+
+@pytest.mark.cuda
+def test_scene_file_on_card_matches_cpu(cuda_device, tmp_path):
+    """`render --scene scenes/cornellbox.yaml` on the card: the film of the
+    loaded scene at 64x64 against the same render on the CPU (1e-4 but for
+    at most 1 value in 10^4), and the CLI's PNG against the CPU's."""
+    import pathlib
+
+    from raytracingthenextweekcuda_tpu_torch import cli
+    from raytracingthenextweekcuda_tpu_torch.io.image import read_png
+    from raytracingthenextweekcuda_tpu_torch.io.yaml_scene import load_scene
+
+    path = str(pathlib.Path(__file__).resolve().parents[1] / "scenes" / "cornellbox.yaml")
+    scene, camera = load_scene(path)
+    scene = finalize(scene)
+    cfg = RenderConfig(width=64, height=64, spp=4, bounces=10)
+    before = bk.KERNEL_LAUNCHES
+    card = integrator.render(scene, camera, cfg, device=cuda_device).accum.cpu().numpy()
+    assert bk.KERNEL_LAUNCHES == before + 1
+    cpu = integrator.render(scene, camera, cfg, device="cpu").accum.numpy()
+    assert (~np.isclose(card, cpu, rtol=1e-4, atol=1e-4)).mean() <= 1e-4
+    pngs = []
+    for device in ("cuda", "cpu"):
+        out = tmp_path / f"{device}.png"
+        assert cli.main(["render", "--scene", path, "--width", "64", "--height", "64",
+                         "--spp", "4", "--device", device, "--out", str(out)]) == 0
+        pngs.append(read_png(str(out)).astype(int))
+    assert (pngs[0] != pngs[1]).mean() <= 1e-4

@@ -1,5 +1,6 @@
 """The port's offline render against the JAX reference through each of its
-engines, its device rules, and that the port package never imports JAX."""
+engines, its device rules, and that the port package never imports JAX,
+the JAX package or PyYAML."""
 
 import ast
 import pathlib
@@ -157,3 +158,5 @@ def test_port_imports_no_jax(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib"), f"{path}: imports {name}"
         assert top != "raytracingthenextweekcuda_tpu", f"{path}: imports {name}"
+        # The H100 host has no PyYAML: scene files go through io/yaml_subset.
+        assert top != "yaml", f"{path}: imports {name}"

@@ -19,6 +19,8 @@ ulps show in whole paths through defocus_blur's metal and glass: at 24x24,
 use seed 1.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -190,11 +192,18 @@ def test_k0_launch_checks_its_inputs():
                                  threefry.split(threefry.key(0), 1)[0], 4, 4)
     inp = bk.bounce_inputs(finalize(scene).packed, bk.planar_state(rays),
                            torch.zeros((16, 4)), 0, cfg)
-    with pytest.raises(ValueError, match="K0 input"):
-        bk._launch_bounce(bk.BounceInputs(**{**inp.scene_fields(),
-                                             "state": inp.state[:, :8],
-                                             "alive": inp.alive, "u4": inp.u4,
-                                             "do_rr": False}))
+    for carry in (tuple(row[:8] for row in inp.carry), inp.carry[:12]):
+        with pytest.raises(ValueError, match="K0 input"):
+            bk._launch_bounce(bk.BounceInputs(**{**inp.scene_fields(),
+                                                 "carry": carry,
+                                                 "alive": inp.alive, "u4": inp.u4,
+                                                 "do_rr": False}))
+    misaligned = torch.zeros(16 * 4 + 1)[1:].view(16, 4)
+    with pytest.raises(ValueError, match="K0 input u4"):
+        bk._launch_bounce(dataclasses.replace(inp, u4=misaligned))
+    # bounce_inputs hands K0 an aligned copy of such a view.
+    assert bk.bounce_inputs(finalize(scene).packed, bk.planar_state(rays), misaligned,
+                            0, cfg).u4.data_ptr() % 16 == 0
 
 
 def test_backward_through_k2_and_k0_raises():

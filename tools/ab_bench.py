@@ -14,14 +14,16 @@ tile-BVH walk). The trees alternate BEFORE, AFTER, AFTER, BEFORE, ... for
 `--rounds` pairs. Each process then runs, after one unprofiled run, each of
 these under torch.profiler and sums each kernel's device time and launches
 there (K1, K2, K0, K3 and K4 by kernel name, the instantiations with the
-tile-BVH walk apart as K1-BVH, K2-BVH and K0-BVH): a mesh render, a
+tile-BVH walk apart as K1-BVH, K2-BVH and K0-BVH; `all`, every kernel of
+the workload, torch's included): a mesh render, a
 headline render, a Cornell G-buffer (512x512, 8 spp, 10 bounces), ten
 `bounce_step` calls on a 512x512 Cornell wavefront, a forced mesh render,
 one forced 16-spp pass of the stress stand-in (32 leaves), a forced
 G-buffer of the published stand-in (512x512, 2 spp, 10 bounces) and ten
-`bounce_step` calls on its 512x512 wavefront. Prints one JSON line a
-process with the host-clock `render_ms` of every call and those sums, then
-one line with each tree's medians. Needs a CUDA card.
+`bounce_step` calls on its 512x512 wavefront. The ten Cornell
+`bounce_step` calls are also timed on the host clock (`steps_ms`). Prints
+one JSON line a process with the host-clock `render_ms` of every call and
+those sums, then one line with each tree's medians. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import sys
 CHILD = """
 import json, sys, time
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 from raytracingthenextweekcuda_tpu_torch.apps.bench import run_bench, run_mesh_bench
 from raytracingthenextweekcuda_tpu_torch.apps.bench_scenes import (
@@ -100,12 +103,15 @@ render_forced = lambda: forced(lambda: integrator.render(mscene, mcam, mcfg,
                                                          device="cuda"))
 render_forced()
 forced_ms = [host_ms(render_forced) for _ in range(n)]
+cornell_steps = steps(cornell, ccam)
+cornell_steps()
+steps_ms = [host_ms(cornell_steps) for _ in range(n)]
 work = {
     "mesh": lambda: integrator.render(mscene, mcam, mcfg, device="cuda"),
     "headline": lambda: integrator.render(cornell, ccam, hcfg, device="cuda"),
     "gbuffer": lambda: integrator.render_gbuffer(cornell, ccam, key, gcfg, gcfg.spp,
                                                  device="cuda"),
-    "steps": steps(cornell, ccam),
+    "steps": cornell_steps,
     "forced_mesh": render_forced,
     "forced_stress_pass": lambda: forced(lambda: integrator.render(
         sscene, scam, pass_cfg, device="cuda")),
@@ -120,8 +126,11 @@ for name, fn in work.items():
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    sums = {}
+    sums = {"all": [0, 0.0]}
     for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            sums["all"][0] += e.count
+            sums["all"][1] += e.device_time_total / 1e3
         for k, kname in KERNELS.items():
             if kname in e.key:
                 label = k + ("-BVH" if "<true>" in e.key else "")
@@ -130,7 +139,7 @@ for name, fn in work.items():
                 got[1] += e.device_time_total / 1e3
     device[name] = sums
 print(json.dumps({"headline_ms": head, "mesh_ms": mesh, "forced_ms": forced_ms,
-                  "device": device}))
+                  "steps_ms": steps_ms, "device": device}))
 """
 
 
@@ -150,7 +159,7 @@ def main() -> None:
         if proc.returncode != 0:
             raise RuntimeError(f"{label} ({tree}) failed:\n{proc.stderr[-4000:]}")
         row = json.loads(proc.stdout.strip().splitlines()[-1])
-        for key in ("headline_ms", "mesh_ms", "forced_ms"):
+        for key in ("headline_ms", "mesh_ms", "forced_ms", "steps_ms"):
             got[label].setdefault(key, []).extend(row[key])
         for work, sums in row["device"].items():
             for kernel, (_, ms) in sums.items():

@@ -128,7 +128,8 @@ def main() -> None:
                    (1, 1, *k2b_inp.counts)),
         "K1-BVH": ("render_kernel<true>", lambda: bk.render_kernel(k1b_inp), 2,
                    (0, 1, *k1b_inp.counts)),
-        "K0-BVH": ("bounce_kernel<true>", lambda: bk.bounce_kernel(k0b_inp)[0], 10,
+        "K0-BVH": ("bounce_kernel<true>",
+                   lambda: torch.stack(bk.bounce_kernel(k0b_inp)[0]), 10,
                    (2, 1, *k0b_inp.counts)),
     }
     names = list(libs)
