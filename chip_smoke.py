@@ -9,7 +9,9 @@ Phases, each printing one line or more:
      (csrc/bvh_winner_kernel.cu) with nvcc, one process per source;
      ptxas's registers and spills per kernel, K1 without the walk held at
      K1_REGS registers and K1_SPILL bytes of spills or fewer, beside those
-     of K1, K2 and K0 with the walk; the tile-BVH builder;
+     of K1, K2 and K0 with the walk, and K4's production instantiation at
+     K4_REGS and K4_SPILL, beside its stats instantiation; the tile-BVH
+     builder;
   3. K1 vs plain: K1 against its plain torch version on the same CUDA
      tensors, 5 presets at 64x64, 4 spp, 6 bounces, plus Cornell with
      Russian roulette and with the sky off (rtol = atol = 1e-4; smallpt by
@@ -90,7 +92,28 @@ Phases, each printing one line or more:
      also rendered small on the card against the CPU (1e-4 but for at
      most 1 value in 10^4); `--checkpoint` stopped after its first pass
      and resumed, bit for bit against a straight render on the card;
-     `--progressive`, a PNG after every pass.
+     `--progressive`, a PNG after every pass;
+ 18. K4's stats: the instantiation that also writes each block's leaf
+     counters [walked, evaluated] against its plain version on phase 6's
+     wavefronts (t, codes and counters equal), and its time beside the
+     production instantiation's on the published primary wavefront, in
+     turns; then mesh metrics 2 and 3 at full size through
+     `run_mesh_stress` (the 16,128-triangle stress stand-in, 512x512, 32
+     spp, 10 bounces, passes of 16, with the leaf-counter probe) and
+     `run_mesh_large` (the 261,120-triangle large stand-in, 512x512, 8 spp,
+     5 bounces): their JSON lines, their images, K3's and K4's launches;
+ 19. tile-sharded rendering on cuda:0: `render_pass_sharded` over 1, 2 and
+     4 tiles, bit for bit against `render_pass` on the card, on Cornell
+     (K1 over each tile's pixel ids), the published mesh stand-in (the
+     sorted wavefront, K3 and K4) and an unfinalized sphere scene (the
+     differentiable wavefront); `render --shards 2` through `cli.main`;
+     the gradient of a sharded render's mean with respect to an albedo
+     against the single-device one (rtol 1e-5); `measure_scaling` on one
+     tile;
+ 20. the live frontend: `live --script "w enter j ] x"` through `cli.main`
+     at its defaults (Cornell, 256x256, 5 bounces, one K1 launch a frame):
+     the frames' spp readouts (the walk's dirty reset) and the screenshot;
+     then `HTTPViewer(port=0)` serving a frame on 127.0.0.1.
 
 Every kernel's time stands beside its CTAs resident on one SM (its
 occupancy query at the launch's shared memory) and the waves its grid
@@ -237,9 +260,12 @@ def _ptxas_by_entry(log: str) -> dict:
     return out
 
 
-# ptxas's registers and spill bytes of K1 without the tile-BVH walk.
+# ptxas's registers and spill bytes of K1 without the tile-BVH walk, and of
+# K4's production instantiation (without the stats counters).
 K1_REGS = 72
 K1_SPILL = 4
+K4_REGS = 64
+K4_SPILL = 0
 
 # The bounds: the least time the card could take for a kernel's work, the
 # larger of its bytes (each input read once, each output written once) over
@@ -400,6 +426,246 @@ def _check_close(name, out, plain, smallpt=False) -> float:
     return float(diff.max())
 
 
+def _check_mesh_image(name, film):
+    """A 512x512 render of a mesh stand-in: finite, and the UV sphere dark
+    with the floor around it lit. The stand-ins' sphere winds its triangles
+    inward, so with back faces culled a camera ray crosses the near side
+    and hits the far side from within, and its path stays inside (but for
+    the few that slip through a crack between two triangles): the sphere
+    renders nearly black, in the reference as here. Returns the centre's
+    and the floor's mean rgb."""
+    from raytracingthenextweekcuda_tpu_torch.models.film import to_image
+
+    mean = film.mean.cpu().numpy()
+    if mean.shape != (512, 512, 3) or not np.isfinite(mean).all():
+        raise AssertionError(f"{name}: not finite or misshapen")
+    img = to_image(film).astype(np.float64)
+    centre = img[226:286, 226:286].reshape(-1, 3).mean(0)
+    floor = img[440:500, 40:472].reshape(-1, 3).mean(0)
+    if not (centre.max() < 10.0 and floor.min() > 100.0):
+        raise AssertionError(f"{name}: centre rgb {centre} (want < 10), "
+                             f"floor rgb {floor} (want > 100)")
+    return centre, floor
+
+
+def _phase18(dev, card, stats_inputs, primary, k4_bound, k4_occ) -> dict:
+    """K4's stats instantiation against its plain version and beside the
+    production one; mesh metrics 2 and 3. Returns the stats
+    instantiation's entry of the kernels line."""
+    from raytracingthenextweekcuda_tpu_torch.apps import bench
+    from raytracingthenextweekcuda_tpu_torch.config import EPSILON
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
+
+    for tag, args, leaves in stats_inputs:
+        t, c, st = k4.winner(*args, leaves, EPSILON, stats=True)
+        tp, cp, stp = k4.winner_reference(*args, leaves, EPSILON, stats=True)
+        _check_equal(f"K4 stats {tag}", t, c, tp, cp)
+        st, stp = st.cpu(), stp.cpu()
+        if not torch.equal(st, stp):
+            bad = int((st != stp).any(dim=1).sum())
+            raise AssertionError(f"K4 stats {tag}: the counters of {bad} blocks differ")
+        t0, c0 = k4.winner(*args, leaves, EPSILON)
+        if not (torch.equal(t0, t) and torch.equal(c0, c)):
+            raise AssertionError(f"K4 stats {tag}: (t, code) differ from production's")
+        live = args[4].counts.cpu() > 0
+        print(f"[18 K4 stats vs plain] {tag}: {int(live.sum())} blocks with a list, "
+              f"mean listed {float(args[4].counts.cpu()[live].float().mean()):.2f}, "
+              f"walked {float(st[live, 0].float().mean()):.2f}, evaluated "
+              f"{float(st[live, 1].float().mean()):.2f} | counters equal, (t, code) "
+              f"equal to the plain version's and to production's", flush=True)
+
+    # The two instantiations in turns on the published primary wavefront.
+    _, _, ds, args = primary
+    prod, stat = [], []
+    for stats, out in ((False, prod), (True, stat), (True, stat), (False, prod)):
+        out.append(_event_ms(lambda: k4.winner(*args, ds.leaves, EPSILON, stats=stats),
+                             reps=10))
+    stats_plain_ms, _ = _host_ms(lambda: k4.winner_reference(*args, ds.leaves,
+                                                             EPSILON, stats=True))
+    print(f"[18 K4 stats times] published primary wavefront ({args[0].shape[0]} "
+          f"rays): production {prod[0]:.4f}, {prod[1]:.4f} ms | stats {stat[0]:.4f}, "
+          f"{stat[1]:.4f} ms (CUDA events, mean of 10, in turns) | plain with stats "
+          f"{stats_plain_ms:.1f} ms (host clock) | {card}", flush=True)
+
+    results = {}
+    for label, run in (("mesh_stress", bench.run_mesh_stress),
+                       ("mesh_large", bench.run_mesh_large)):
+        k3.KERNEL_LAUNCHES = k4.KERNEL_LAUNCHES = k4.STATS_LAUNCHES = 0
+        result = run(device=dev, keep_film=True)
+        launches = (k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES, k4.STATS_LAUNCHES)
+        film = result.pop("film")
+        if launches[0] <= 0 or launches[1] <= 0:
+            raise AssertionError(f"{label} launched K3 and K4 {launches[:2]} times")
+        centre, floor = _check_mesh_image(label, film)
+        results[label] = (result, launches)
+        print(f"[18 {label}] {json.dumps(result)}", flush=True)
+        print(f"[18 {label}] K3 launches {launches[0]}, K4 launches {launches[1]}, "
+              f"K4 stats launches {launches[2]} | centre (sphere) rgb "
+              f"{centre.round(2).tolist()} floor rgb {floor.round(1).tolist()}",
+              flush=True)
+    stress, (_, _, stats_launches) = results["mesh_stress"]
+    if stats_launches != len(stress["stats"]):
+        raise AssertionError(f"the stress probe launched K4's stats instantiation "
+                             f"{stats_launches} times for {len(stress['stats'])} bounces")
+    large = results["mesh_large"][0]
+    if large["frustum"] or results["mesh_large"][1][2]:
+        raise AssertionError(f"mesh_large: frustum {large['frustum']} at "
+                             f"{large['leaves']} leaves, stats launches "
+                             f"{results['mesh_large'][1][2]}")
+    return {"name": "K4 bvh_winner_kernel<true> (stats)",
+            "source": "bvh_winner_kernel.cu",
+            "replaces": "raytracingthenextweekcuda_tpu/ops/pallas/"
+                        "bvh_winner_kernel.py:201",
+            "launches": stats_launches, "ms": stat[0], "plain_ms": stats_plain_ms,
+            "bound": k4_bound, "res": k4_occ}
+
+
+def _phase19(dev, card) -> None:
+    """Tile-sharded rendering on one card: bit for bit against render_pass,
+    through the CLI, a gradient, and the scaling measurement."""
+    from raytracingthenextweekcuda_tpu_torch import cli
+    from raytracingthenextweekcuda_tpu_torch.apps import bench_scenes
+    from raytracingthenextweekcuda_tpu_torch.config import RenderConfig
+    from raytracingthenextweekcuda_tpu_torch.io import image as image_io
+    from raytracingthenextweekcuda_tpu_torch.models import integrator, presets
+    from raytracingthenextweekcuda_tpu_torch.models.scene import finalize, with_leaves
+    from raytracingthenextweekcuda_tpu_torch.ops import threefry
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bounce_kernel as bk
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
+    from raytracingthenextweekcuda_tpu_torch.parallel.mesh import make_mesh
+    from raytracingthenextweekcuda_tpu_torch.parallel.multihost import measure_scaling
+    from raytracingthenextweekcuda_tpu_torch.parallel.render import render_pass_sharded
+
+    cornell, ccam = presets.cornell_box()
+    pub, pcam, _ = bench_scenes.published_mesh_scene()
+    sphere, scam = presets.diffuse_sphere_plane()
+    cfg = RenderConfig(width=512, height=512, spp=4, bounces=10)
+    # (name, scene, camera, config, the kernels its route launches)
+    cases = (("cornell", finalize(cornell), ccam, cfg, {"K1"}),
+             ("published mesh", finalize(pub), pcam, cfg, {"K3", "K4"}),
+             ("sphere-plane wavefront", finalize(sphere), scam,
+              dataclasses.replace(cfg, fused_bounce=False), {"K3"}))
+    key = threefry.key(5)
+    for name, scene, camera, ccfg, uses in cases:
+        single = integrator.render_pass(scene, camera, key, ccfg, ccfg.spp, device=dev)
+        line = []
+        for n in (1, 2, 4):
+            bk.KERNEL_LAUNCHES = bk.PATH_LAUNCHES = 0
+            k3.KERNEL_LAUNCHES = k4.KERNEL_LAUNCHES = 0
+            ms, out = _host_ms(lambda: render_pass_sharded(
+                scene, camera, key, ccfg, ccfg.spp, make_mesh(n, [dev] * n)))
+            k1, k2 = bk.KERNEL_LAUNCHES, bk.PATH_LAUNCHES
+            n3, n4 = k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES
+            if (k1 != (n if "K1" in uses else 0) or k2 or (n3 > 0) != ("K3" in uses)
+                    or (n4 > 0) != ("K4" in uses)):
+                raise AssertionError(f"{name} over {n} tiles launched K1 {k1}, K2 "
+                                     f"{k2}, K3 {n3} and K4 {n4} times")
+            _check_same(f"{name} over {n} tiles", out, single)
+            line.append(f"{n} tiles {ms:.1f} ms (K1 {k1}, K3 {n3}, K4 {n4})")
+        print(f"[19 sharded] {name} ({', '.join(sorted(uses))}) {ccfg.width}x{ccfg.height}, "
+              f"{ccfg.spp} spp, {ccfg.bounces} bounces on "
+              f"{dev}: bit for bit equal to render_pass | " + " | ".join(line)
+              + f" | host clock | {card}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/shards.png"
+        bk.KERNEL_LAUNCHES = 0
+        ms, rc = _host_ms(lambda: cli.main(["render", "--shards", "2", "--out", out]))
+        img = image_io.read_png(out).astype(np.float64)
+        left = img[170:340, 5:40].reshape(-1, 3).mean(0)
+        right = img[170:340, -40:-5].reshape(-1, 3).mean(0)
+        if (rc != 0 or bk.KERNEL_LAUNCHES != 2 or img.shape != (512, 512, 3)
+                or not (left[0] > left[2] and right[2] > right[0])):
+            raise AssertionError(f"render --shards 2: rc {rc}, K1 launches "
+                                 f"{bk.KERNEL_LAUNCHES}, image {img.shape}, walls "
+                                 f"{left} {right}")
+    print(f"[19 render --shards 2] cornell 512x512, 32 spp through cli.main: "
+          f"{ms:.1f} ms host, K1 launches 2 (one a tile) | left wall rgb "
+          f"{left.round(1).tolist()} right wall rgb {right.round(1).tolist()}",
+          flush=True)
+
+    gcfg = RenderConfig(width=128, height=128, spp=2, bounces=4, fused_bounce=False)
+    albedo = torch.from_numpy(np.asarray(sphere.materials.albedo, np.float32))
+
+    def albedo_grad(render):
+        a = torch.tensor(0.7, device=dev, requires_grad=True)
+        rows = albedo.to(dev)
+        rows = torch.cat([torch.stack([a, rows[0, 1], rows[0, 2]])[None], rows[1:]])
+        render(with_leaves(sphere, {"materials.albedo": rows})).mean().backward()
+        return float(a.grad)
+
+    g1 = albedo_grad(lambda s: integrator.render_pass(s, scam, key, gcfg, 2,
+                                                      device=dev))
+    g4 = albedo_grad(lambda s: render_pass_sharded(s, scam, key, gcfg, 2,
+                                                   make_mesh(4, [dev] * 4)))
+    if g1 == 0.0 or not np.isfinite(g1):
+        raise AssertionError(f"albedo gradient {g1}")
+    np.testing.assert_allclose(g4, g1, rtol=1e-5)
+    rates = measure_scaling(finalize(cornell), ccam,
+                            RenderConfig(width=512, height=512, bounces=10),
+                            device_counts=[1], verbose=False, devices=[dev])
+    if not rates[1] > 0:
+        raise AssertionError(f"measure_scaling: {rates}")
+    print(f"[19 sharded gradient] d mean(render) / d albedo, sphere-plane 128x128, "
+          f"2 spp, 4 bounces: 4 tiles {g4:.8e} vs one device {g1:.8e} (rtol 1e-5) | "
+          f"measure_scaling cornell 512x512, 8 spp, 1 tile: {rates[1] / 1e6:.2f} M "
+          f"paths/s (host clock) | {card}", flush=True)
+
+
+def _phase20(dev) -> None:
+    """The live frontend through the CLI, and the HTTP viewer."""
+    import contextlib
+    import io
+    import urllib.request
+
+    from raytracingthenextweekcuda_tpu_torch import cli
+    from raytracingthenextweekcuda_tpu_torch.apps.viewer import HTTPViewer
+    from raytracingthenextweekcuda_tpu_torch.io import image as image_io
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bounce_kernel as bk
+
+    frames = io.StringIO()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)  # the screenshot goes to the working directory
+        try:
+            bk.KERNEL_LAUNCHES = 0
+            with contextlib.redirect_stdout(frames):
+                ms, rc = _host_ms(lambda: cli.main(["live", "--script",
+                                                    "w enter j ] x"]))
+            launches = bk.KERNEL_LAUNCHES
+            shot = pathlib.Path(tmp) / "render_256x256_spp2.png"
+            img = image_io.read_png(str(shot)) if shot.exists() else None
+        finally:
+            os.chdir(cwd)
+    spp = [int(v) for v in re.findall(r"spp (\d+)", frames.getvalue())]
+    # Two frames at the start and after each command; a move resets the
+    # film, the screenshot does not.
+    want = [1, 2, 1, 2, 3, 4, 1, 2, 1, 2]
+    if rc != 0 or spp != want or launches != len(want) or img is None:
+        raise AssertionError(f"live: rc {rc}, spp readouts {spp} (want {want}), K1 "
+                             f"launches {launches}, screenshot {img is not None}")
+    if img.shape != (256, 256, 3) or not img.any():
+        raise AssertionError(f"live screenshot {img.shape}, max {img.max()}")
+    viewer = HTTPViewer(port=0)
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))  # no proxy
+    try:
+        viewer.show(img)
+        base = f"http://127.0.0.1:{viewer.port}"
+        page = opener.open(f"{base}/", timeout=5).read()
+        png = opener.open(f"{base}/frame.png", timeout=5).read()
+    finally:
+        viewer.close()
+    if b"frame.png" not in page or not png.startswith(b"\x89PNG"):
+        raise AssertionError("HTTPViewer: no page or no PNG frame")
+    print(f"[20 live] live --script 'w enter j ] x' through cli.main (cornell "
+          f"256x256, 5 bounces): {ms:.1f} ms host, K1 launches {launches}, spp "
+          f"readouts {spp}, screenshot render_256x256_spp2.png {img.shape} | "
+          f"HTTPViewer on 127.0.0.1:{viewer.port}: page and a {len(png)}-byte PNG "
+          f"frame", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -449,7 +715,7 @@ def main() -> None:
     # K1 without the tile-BVH walk: at most K1_REGS registers and K1_SPILL
     # bytes of spills.
     regs_spills = {}
-    for kernel in ("render_kernel", "path_kernel", "bounce_kernel"):
+    for kernel in ("render_kernel", "path_kernel", "bounce_kernel", "bvh_winner_kernel"):
         for entry in (f"{kernel}<false>", f"{kernel}<true>"):
             line = ptxas_lines.get(entry, "")
             regs = re.search(r"Used (\d+) registers", line)
@@ -466,6 +732,13 @@ def main() -> None:
     if regs > K1_REGS or spill > K1_SPILL:
         raise AssertionError(f"K1 without the walk: {regs} registers and {spill} "
                              f"spill bytes, above {K1_REGS} and {K1_SPILL}")
+    print(f"[2 build] K4 registers, spill bytes: production "
+          f"{regs_spills['bvh_winner_kernel<false>']}, with the stats counters "
+          f"{regs_spills['bvh_winner_kernel<true>']}", flush=True)
+    regs, spill = regs_spills["bvh_winner_kernel<false>"]
+    if regs > K4_REGS or spill > K4_SPILL:
+        raise AssertionError(f"K4's production instantiation: {regs} registers and "
+                             f"{spill} spill bytes, above {K4_REGS} and {K4_SPILL}")
 
     # 3. K1 vs plain on the card
     cases = [
@@ -556,6 +829,7 @@ def main() -> None:
                  ("stress", bench_scenes.stress_mesh_scene, 2)]
     k3_err = k4_err = 0.0
     timing_inputs = None
+    stats_inputs = []  # phase 18: (tag, K4's inputs, leaves) of each wavefront
     for label, make, samples in stand_ins:
         scene, mcam, _ = make()
         scene = finalize(scene)
@@ -572,6 +846,7 @@ def main() -> None:
             t4, c4 = k4.winner(*args, ds.leaves, EPSILON)
             t4p, c4p = k4.winner_reference(*args, ds.leaves, EPSILON)
             k4_err = max(k4_err, _check_equal(f"K4 {tag}", t4, c4, t4p, c4p))
+            stats_inputs.append((tag, args, ds.leaves))
             n_live = int(alive.sum())
             wl = args[4]
             print(f"[6 K3/K4 vs plain] {tag}: {rays.count} rays ({n_live} live, "
@@ -629,19 +904,7 @@ def main() -> None:
         raise AssertionError(f"the mesh render launched K3 {k3_launches} and "
                              f"K4 {k4_launches} times")
     sorted_mesh = film.mean.cpu().numpy()
-    if sorted_mesh.shape != (512, 512, 3) or not np.isfinite(sorted_mesh).all():
-        raise AssertionError("mesh image not finite or misshapen")
-    # The stand-in's UV sphere winds its triangles inward, so with back
-    # faces culled a camera ray crosses the near side and hits the far side
-    # from within, and its path stays inside (but for the few that slip
-    # through a crack between two triangles): the sphere renders nearly
-    # black, in the reference as here. The floor around it is lit.
-    img = to_image(film).astype(np.float64)
-    centre = img[226:286, 226:286].reshape(-1, 3).mean(0)
-    floor = img[440:500, 40:472].reshape(-1, 3).mean(0)
-    if not (centre.max() < 10.0 and floor.min() > 100.0):
-        raise AssertionError(f"mesh image: centre rgb {centre} (want < 10), "
-                             f"floor rgb {floor} (want > 100)")
+    centre, floor = _check_mesh_image("mesh image", film)
     print(f"[8 mesh main path] {json.dumps(mesh_result)} | K3 launches "
           f"{k3_launches} K4 launches {k4_launches} | centre (sphere) rgb "
           f"{centre.round(2).tolist()} floor rgb {floor.round(1).tolist()}",
@@ -1341,6 +1604,14 @@ def main() -> None:
 
     k3_ms, k3p_ms, k4_ms, k4p_ms = times["primary"]
     k3_bound, k4_bound = bounds["primary"]
+
+    # 18-20. K4's stats and mesh metrics 2 and 3; tile-sharded rendering;
+    # the live frontend
+    k4_stats = _phase18(dev, card, stats_inputs, timing_inputs["primary"],
+                        k4_bound, occ["primary"][1])
+    del stats_inputs
+    _phase19(dev, card)
+    _phase20(dev)
     src = "raytracingthenextweekcuda_tpu_torch/csrc/"
     ref = "raytracingthenextweekcuda_tpu/ops/pallas/"
     walk = f"{ref}bounce_kernel.py:820"  # the consensus walk in _bounce_core
@@ -1373,6 +1644,9 @@ def main() -> None:
         entry("K4 bvh_winner_kernel", "bvh_winner_kernel.cu",
               f"{ref}bvh_winner_kernel.py:201", k4_launches, k4_err, k4_ms, k4p_ms,
               k4_bound, occ["primary"][1]),
+        entry(k4_stats["name"], k4_stats["source"], k4_stats["replaces"],
+              k4_stats["launches"], 0.0, k4_stats["ms"], k4_stats["plain_ms"],
+              k4_stats["bound"], k4_stats["res"]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

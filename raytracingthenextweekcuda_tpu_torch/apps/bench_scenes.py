@@ -30,4 +30,16 @@ def stress_mesh_scene():
     return scene, camera, f"mesh_showcase(64, 128), {STAND_IN}"
 
 
-__all__ = ["STAND_IN", "published_mesh_scene", "stress_mesh_scene"]
+def large_mesh_scene(copies: int = 12):
+    """Stand-in for the reference's large scene (cornellbox2 plus `copies`
+    scaled and displaced materialballs, about 562k triangles at 12): the
+    reference's own fallback, a 261,120-triangle UV sphere. `copies` only
+    names the scene it stands in for; loading the real assets waits until
+    they are in the repository."""
+    scene, camera = presets.mesh_showcase(n_lat=256, n_lon=512)
+    return scene, camera, (f"mesh_showcase(256, 512) for {copies}x "
+                           f"materialball.ply, {STAND_IN}")
+
+
+__all__ = ["STAND_IN", "large_mesh_scene", "published_mesh_scene",
+           "stress_mesh_scene"]

@@ -40,7 +40,14 @@
 // the winner is the sequential scan's: the kernel equals the plain torch
 // version (ops/cuda/bvh_winner_kernel.py winner_reference) bit for bit.
 // Left out as TPU workarounds: the streaming DMA of the Havel rows,
-// WINNER_SUB block batching, the 1024-ray padding and the stats counters.
+// WINNER_SUB block batching and the 1024-ray padding.
+//
+// Stats. The `kStats` instantiation also writes a block's leaf counters
+// [walked, evaluated], as the reference's stats output does: `walked` the
+// list positions before the horizon break, `evaluated` those where at least
+// one live ray needs the leaf ([0, 0] for a block with no live ray or an
+// empty list). A prefetched leaf is not walked until the walk reaches it.
+// The production instantiation, kStats = false, carries no counter.
 //
 // Rounding follows the plain version: no fused multiply-add (built with
 // --fmad=false) and true divisions.
@@ -95,6 +102,7 @@ __device__ __forceinline__ void stage_leaf(float4* buf, const float4* __restrict
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+template <bool kStats>
 __global__ void __launch_bounds__(kBlock)
 bvh_winner_kernel(const float* __restrict__ origin,
                   const float* __restrict__ direction,
@@ -108,7 +116,7 @@ bvh_winner_kernel(const float* __restrict__ origin,
                   const int32_t* __restrict__ leaf_count,
                   const float4* __restrict__ aos, int buf_cols, float tmin,
                   float exit_rel, float exit_abs, float* __restrict__ t_out,
-                  int32_t* __restrict__ code_out) {
+                  int32_t* __restrict__ code_out, int32_t* __restrict__ stats) {
   extern __shared__ float4 bufs[];  // 2 x buf_cols x kColVecs
   __shared__ float red[kWarps];
   __shared__ float s_ray[6][kBlock];  // origin and direction of each ray
@@ -124,6 +132,10 @@ bvh_winner_kernel(const float* __restrict__ origin,
   if (!__syncthreads_or(live) || count == 0) {
     t_out[i] = kBig;
     code_out[i] = -1;
+    if (kStats && tid == 0) {
+      stats[2 * b] = 0;
+      stats[2 * b + 1] = 0;
+    }
     return;
   }
   const float ox = origin[3 * i], oy = origin[3 * i + 1], oz = origin[3 * i + 2];
@@ -152,8 +164,10 @@ bvh_winner_kernel(const float* __restrict__ origin,
   const int lane = tid & 31, warp = tid >> 5;
   int pf_k = -1;   // the list position whose leaf was prefetched
   int pf_buf = 0;  // and the buffer it went to
+  int walked = 0, evaluated = 0;  // the stats counters, uniform in the block
   for (int k = 0; k < count; ++k) {
     if (!(my_entry[k] < tmax)) break;  // the same for every thread
+    if (kStats) ++walked;
     const int l = my_order[k];
     float tn = fminf((leaf_bounds[l] - ox) * ix,
                      (leaf_bounds[3 * n_leaves + l] - ox) * ix);
@@ -182,6 +196,7 @@ bvh_winner_kernel(const float* __restrict__ origin,
       m += hits[w];
     }
     if (m == 0) continue;  // the same for every thread
+    if (kStats) ++evaluated;
     if (node_hit) s_list[before + __popc(bits & ((1u << lane) - 1u))] = tid;
 
     // The leaf: prefetched at the previous list position, or copied now.
@@ -257,16 +272,43 @@ bvh_winner_kernel(const float* __restrict__ origin,
   const int win = s_win[tid];
   t_out[i] = win >= 0 ? best : kBig;
   code_out[i] = win >= 0 ? ((3 << 24) | win) : -1;
+  if (kStats && tid == 0) {
+    stats[2 * b] = walked;
+    stats[2 * b + 1] = evaluated;
+  }
 }
 
 // Dynamic shared memory of a launch: two leaf buffers of `buf_cols`
 // columns. With the kernel's static arrays they pass 48 KB at 480 columns,
 // so the kernel's dynamic limit is raised to them.
+template <bool kStats>
 int winner_smem(int buf_cols, size_t* bytes) {
   *bytes = 2 * (size_t)buf_cols * kColVecs * sizeof(float4);
-  return (int)cudaFuncSetAttribute(bvh_winner_kernel,
+  return (int)cudaFuncSetAttribute(bvh_winner_kernel<kStats>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)*bytes);
+}
+
+template <bool kStats>
+int launch_winner(const float* origin, const float* direction,
+                  const unsigned char* alive, const float* tcap, int n_blocks,
+                  const int32_t* counts, const int32_t* order, const float* entry,
+                  int n_leaves, const float* root, const float* leaf_bounds,
+                  const int32_t* leaf_tiles, const int32_t* leaf_count,
+                  const float* aos, int buf_cols, float tmin, float* t_out,
+                  int32_t* code_out, int32_t* stats, cudaStream_t stream) {
+  size_t bytes = 0;
+  const int e = winner_smem<kStats>(buf_cols, &bytes);
+  if (e != 0) return e;
+  // The horizon margin as the plain version rounds it: the Python doubles
+  // 1.0 + 1e-5 and 1e-4 rounded to float.
+  const float exit_rel = (float)(1.0 + 1e-5);
+  const float exit_abs = (float)1e-4;
+  bvh_winner_kernel<kStats><<<n_blocks, kBlock, bytes, stream>>>(
+      origin, direction, alive, tcap, counts, order, entry, n_leaves, root,
+      leaf_bounds, leaf_tiles, leaf_count, (const float4*)aos, buf_cols, tmin,
+      exit_rel, exit_abs, t_out, code_out, stats);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -280,19 +322,18 @@ extern "C" int rtnw_bvh_winner(const float* origin, const float* direction,
                                const int32_t* leaf_tiles,
                                const int32_t* leaf_count, const float* aos,
                                int buf_cols, float tmin, float* t_out,
-                               int32_t* code_out, void* stream) {
-  size_t bytes = 0;
-  const int e = winner_smem(buf_cols, &bytes);
-  if (e != 0) return e;
-  // The horizon margin as the plain version rounds it: the Python doubles
-  // 1.0 + 1e-5 and 1e-4 rounded to float.
-  const float exit_rel = (float)(1.0 + 1e-5);
-  const float exit_abs = (float)1e-4;
-  bvh_winner_kernel<<<n_blocks, kBlock, bytes, (cudaStream_t)stream>>>(
-      origin, direction, alive, tcap, counts, order, entry, n_leaves, root,
-      leaf_bounds, leaf_tiles, leaf_count, (const float4*)aos, buf_cols, tmin,
-      exit_rel, exit_abs, t_out, code_out);
-  return (int)cudaGetLastError();
+                               int32_t* code_out, int32_t* stats, void* stream) {
+  // `stats` (n_blocks, 2) int32, or null for the production instantiation.
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (stats != nullptr)
+    return launch_winner<true>(origin, direction, alive, tcap, n_blocks, counts,
+                               order, entry, n_leaves, root, leaf_bounds,
+                               leaf_tiles, leaf_count, aos, buf_cols, tmin, t_out,
+                               code_out, stats, s);
+  return launch_winner<false>(origin, direction, alive, tcap, n_blocks, counts,
+                              order, entry, n_leaves, root, leaf_bounds,
+                              leaf_tiles, leaf_count, aos, buf_cols, tmin, t_out,
+                              code_out, nullptr, s);
 }
 
 // CTAs of K4 resident on one SM at a launch's shared memory, and its
@@ -300,8 +341,8 @@ extern "C" int rtnw_bvh_winner(const float* origin, const float* direction,
 extern "C" int rtnw_bvh_winner_occupancy(int buf_cols, int* ctas, int* threads) {
   size_t bytes = 0;
   *threads = kBlock;
-  const int e = winner_smem(buf_cols, &bytes);
+  const int e = winner_smem<false>(buf_cols, &bytes);
   if (e != 0) return e;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, bvh_winner_kernel,
-                                                            kBlock, bytes);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, bvh_winner_kernel<false>, kBlock, bytes);
 }

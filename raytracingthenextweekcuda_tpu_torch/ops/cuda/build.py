@@ -183,6 +183,7 @@ def load() -> ctypes.CDLL:
             vp, vp, ci,              # leaf_count, aos rows, leaf buffer width
             cf,                      # tmin
             vp, vp,                  # t out (float*), code out (int32*)
+            vp,                      # stats out ((n_blocks, 2) int32*) or null
             vp,                      # cudaStream_t
         ]
         fn.restype = ci

@@ -16,7 +16,10 @@ raytracingthenextweekcuda_tpu/ops/pallas/bvh_winner_kernel.py).
    improve scan the leaf's real triangles (`LeafScene.leaf_count`, a
    prefix of its tile), several threads a ray when few need it. Returns
    (t, code), code = TYPE_TRIANGLE << 24 | padded triangle column, (BIG,
-   -1) on a miss and for dead rays.
+   -1) on a miss and for dead rays. With `stats`, each block also reports
+   its leaf counters [walked, evaluated]: the list positions it walked
+   before the horizon break, and those where at least one live ray needed
+   the leaf (the reference's stats output, read by apps/bench.py's probe).
 
 `intersect_packed_bvh` is the entry: tensors on a CUDA device launch K4
 (or raise), tensors on the CPU run `winner_reference`, the same walk in
@@ -56,8 +59,10 @@ HAVEL_GEOM_ROWS = 12
 _EXIT_REL = 1.0 + 1e-5
 _EXIT_ABS = 1e-4
 
-# Launches of K4, counted by `winner` where it launches the kernel.
+# Launches of K4, counted by `winner` where it launches the kernel: the
+# production instantiation, and the one that also writes the stats.
 KERNEL_LAUNCHES = 0
+STATS_LAUNCHES = 0
 
 
 def use_frustum_worklist(n_leaves: int) -> bool:
@@ -220,17 +225,24 @@ def _build_worklist_frustum(origin, direction, alive, leaf_bounds, tmin,
 
 
 def intersect_packed_bvh(rays, scene: LeafScene, tmin: float = EPSILON,
-                         alive=None, t_cap=None):
+                         alive=None, t_cap=None, stats: bool = False):
     """Closest triangle hit of `rays` through the tile-BVH `scene` (on the
     rays' device): (t (N,) float32, code (N,) int32), code = TYPE_TRIANGLE
     << 24 | column of the winning triangle in the packed (tile-ordered,
     padded) triangles, (BIG, -1) on a miss and where `alive` is False.
     `t_cap` (N,) is each ray's closest analytic hit (BIG where none): a
     triangle at t >= t_cap is never reported. Back faces are culled.
+
+    With `stats`, returns (t, code, (counts, st)): the work list's length
+    (B,) of each 128-ray block and its leaf counters st (B, 2) int32,
+    [walked, evaluated], as the reference's `stats=True` does.
     """
     args = winner_inputs(rays, scene, tmin, alive, t_cap)
-    t, code = winner(*args, scene, tmin)
-    return t[:rays.count], code[:rays.count]
+    out = winner(*args, scene, tmin, stats=stats)
+    t, code = out[0][:rays.count], out[1][:rays.count]
+    if stats:
+        return t, code, (args[4].counts, out[2])
+    return t, code
 
 
 def winner_inputs(rays, scene: LeafScene, tmin: float, alive=None, t_cap=None):
@@ -258,20 +270,22 @@ def winner_inputs(rays, scene: LeafScene, tmin: float, alive=None, t_cap=None):
 
 
 def winner(origin, direction, alive, tcap, wl: WorkList, scene: LeafScene,
-           tmin: float):
+           tmin: float, stats: bool = False):
     """Dispatch by device: CUDA tensors launch K4, CPU tensors run the
-    plain version. Rays are padded to a multiple of BLOCK."""
+    plain version. Rays are padded to a multiple of BLOCK. Returns (t,
+    code), and with `stats` also the blocks' leaf counters (B, 2)."""
     dev = origin.device
     if dev.type == "cuda":
-        return _launch(origin, direction, alive, tcap, wl, scene, tmin)
+        return _launch(origin, direction, alive, tcap, wl, scene, tmin, stats)
     if dev.type == "cpu":
-        return winner_reference(origin, direction, alive, tcap, wl, scene, tmin)
+        return winner_reference(origin, direction, alive, tcap, wl, scene, tmin,
+                                stats)
     raise ValueError(f"unsupported device {dev}")
 
 
 def _launch(origin, direction, alive, tcap, wl: WorkList, scene: LeafScene,
-            tmin: float):
-    global KERNEL_LAUNCHES
+            tmin: float, stats: bool = False):
+    global KERNEL_LAUNCHES, STATS_LAUNCHES
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
 
     dev = origin.device
@@ -304,8 +318,9 @@ def _launch(origin, direction, alive, tcap, wl: WorkList, scene: LeafScene,
     lib = build.load()
     t_out = torch.empty((n,), dtype=torch.float32, device=dev)
     code = torch.empty((n,), dtype=torch.int32, device=dev)
+    st = torch.empty((B, 2), dtype=torch.int32, device=dev) if stats else None
     if n == 0:
-        return t_out, code
+        return (t_out, code, st) if stats else (t_out, code)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rtnw_bvh_winner(
@@ -315,10 +330,13 @@ def _launch(origin, direction, alive, tcap, wl: WorkList, scene: LeafScene,
             scene.leaf_bounds.data_ptr(), scene.leaf_tiles.data_ptr(),
             scene.leaf_count.data_ptr(), scene.aos.data_ptr(),
             int(scene.max_count), float(tmin), t_out.data_ptr(),
-            code.data_ptr(), stream)
+            code.data_ptr(), st.data_ptr() if stats else None, stream)
     if err != 0:
         raise RuntimeError(
             f"K4 launch failed: {lib.rtnw_error_string(err).decode()} ({err})")
+    if stats:
+        STATS_LAUNCHES += 1
+        return t_out, code, st
     KERNEL_LAUNCHES += 1
     return t_out, code
 
@@ -337,12 +355,14 @@ def _slab(lb, l, o, inv):
 
 
 def winner_reference(origin, direction, alive, tcap, wl: WorkList,
-                     scene: LeafScene, tmin: float):
+                     scene: LeafScene, tmin: float, stats: bool = False):
     """Plain K4: the walk vectorized over blocks, one list position at a
     time, each Havel tile evaluated over (rays, tile) in block chunks.
 
     A ray keeps the first lane of a tile's strict minimum below its best,
     as the kernel's sequential scan does, so the two agree bit for bit.
+    With `stats`, also returns each block's [walked, evaluated] (B, 2)
+    int32: the positions of its `walking` mask and of its `need` mask.
     """
     n = origin.shape[0]
     dev = origin.device
@@ -350,10 +370,11 @@ def winner_reference(origin, direction, alive, tcap, wl: WorkList,
     f32 = torch.float32
     t_out = torch.full((n,), BIG, dtype=f32, device=dev)
     code_out = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    st = torch.zeros((B, 2), dtype=torch.int32, device=dev)
     av = alive.view(B, BLOCK)
     blocks = torch.nonzero(av.any(dim=1) & (wl.counts > 0)).flatten()
     if blocks.numel() == 0:
-        return t_out, code_out
+        return (t_out, code_out, st) if stats else (t_out, code_out)
     o = origin.view(B, BLOCK, 3)[blocks]
     d = direction.view(B, BLOCK, 3)[blocks]
     live = av[blocks]
@@ -375,6 +396,8 @@ def winner_reference(origin, direction, alive, tcap, wl: WorkList,
     order = wl.order[blocks].to(torch.int64)
     entry = wl.entry[blocks]
     walking = torch.ones_like(counts, dtype=torch.bool)
+    walked = torch.zeros_like(counts)
+    evaluated = torch.zeros_like(counts)
     lane = torch.arange(scene.tile, device=dev)
     trih = scene.trih
     leaf_triangles = tile_triangles(trih[0:3], scene.leaf_tiles, scene.tile)
@@ -383,12 +406,14 @@ def winner_reference(origin, direction, alive, tcap, wl: WorkList,
         sel = torch.nonzero(walking).flatten()
         if sel.numel() == 0:
             break
+        walked += walking.to(walked.dtype)
         leaf = order[sel, k]
         tn, tf = _slab(scene.leaf_bounds, leaf, o[sel], inv[sel])
         WORK["box_tests"] += int(live[sel].sum())
         node_hit = (tf >= tn) & (tf >= tmin) & (tn < best[sel]) & live[sel]
         need = node_hit.any(dim=1)
         sel, leaf, node_hit = sel[need], leaf[need], node_hit[need]
+        evaluated[sel] += 1
         WORK["block_leaves"] += int(sel.numel())
         count_leaves(node_hit.sum(dim=1), leaf_triangles[leaf])
         for c0 in range(0, sel.numel(), _WINNER_CHUNK_BLOCKS):
@@ -423,10 +448,14 @@ def winner_reference(origin, direction, alive, tcap, wl: WorkList,
     ray_idx = (blocks[:, None] * BLOCK + torch.arange(BLOCK, device=dev)).flatten()
     t_out[ray_idx] = t_rows.flatten()
     code_out[ray_idx] = c_rows.flatten()
+    if stats:
+        st[blocks] = torch.stack([walked, evaluated], dim=1).to(torch.int32)
+        return t_out, code_out, st
     return t_out, code_out
 
 
 __all__ = ["BLOCK", "FRUSTUM_LEAF_THRESHOLD", "KERNEL_LAUNCHES", "LeafScene",
+           "STATS_LAUNCHES",
            "WorkList", "build_worklist", "intersect_packed_bvh", "leaf_scene",
            "real_columns", "use_frustum_worklist", "winner",
            "winner_inputs", "winner_reference"]

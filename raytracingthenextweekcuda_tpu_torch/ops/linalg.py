@@ -65,3 +65,11 @@ def refract(uv: torch.Tensor, n: torch.Tensor, eta_ratio: torch.Tensor) -> torch
     r_par = torch.where(pos, sqrt(torch.where(pos, k, torch.ones_like(k))),
                         torch.zeros_like(k))
     return r_out_perp - r_par[..., None] * n
+
+
+def rotate_y(v: torch.Tensor, degrees) -> torch.Tensor:
+    """Rotate about +Y by `degrees` (LinearAlgebra.h rotateY), in v's dtype."""
+    rad = torch.deg2rad(torch.as_tensor(degrees, dtype=v.dtype, device=v.device))
+    c, s = torch.cos(rad), torch.sin(rad)
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    return torch.stack([c * x + s * z, y, -s * x + c * z], dim=-1)

@@ -4,11 +4,12 @@ where path lengths are most uneven; K1, K2 and K0 with the tile-BVH walk bit
 for bit on warps that walk with part of their lanes and on ties between
 leaves; K2 bit for bit on its persistent grid below and above one
 resident grid, K0 from below a warp to above a resident grid; K3 and K4
-bit for bit, K4 also for every count of rays
-that need a leaf, on ties and on skipped prefetches), and renders (and one
-backward of the differentiable wavefront and of the LBVH regime, and a
-scene file through `render --scene`) on the card against the same on the
-CPU. These tests skip without a card. The file imports no
+bit for bit, K4 also for every count of rays that need a leaf, on ties
+and on skipped prefetches, and K4's stats counters equal to the plain
+version's), renders (and one backward of the differentiable wavefront and
+of the LBVH regime, and a scene file through `render --scene`) on the card
+against the same on the CPU, and tile-sharded passes on the card against
+render_pass there. These tests skip without a card. The file imports no
 jax, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -447,6 +448,29 @@ def test_k4_skipped_prefetch_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_k4_stats_match_plain_on_card(cuda_device):
+    """K4's stats instantiation on the stacked grids: (t, code) as the
+    production one's, and each block's [walked, evaluated] as the plain
+    version's, with leaves skipped after the top layer (evaluated <
+    walked)."""
+    from raytracingthenextweekcuda_tpu_torch.config import EPSILON
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+
+    tri = np.concatenate([_grid(40, 10, -0.25 * k) for k in range(6)])
+    o, d = _down_rays(128 * 32, seed=5, tilt=0.5)
+    alive = np.random.default_rng(6).random(o.shape[0]) > 0.2
+    (t, c), _, args, leaves = _k4_case(tri, o, d, alive, cuda_device)
+    before = (k4.KERNEL_LAUNCHES, k4.STATS_LAUNCHES)
+    t_s, c_s, st = k4.winner(*args, leaves, EPSILON, stats=True)
+    assert (k4.KERNEL_LAUNCHES, k4.STATS_LAUNCHES) == (before[0], before[1] + 1)
+    _, _, st_p = k4.winner_reference(*args, leaves, EPSILON, stats=True)
+    assert torch.equal(t_s, t) and torch.equal(c_s, c)
+    assert st.dtype == torch.int32 and st.shape == (args[4].counts.shape[0], 2)
+    assert torch.equal(st.cpu(), st_p.cpu())
+    assert (st[:, 1] < st[:, 0]).any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("use_bvh", [False, True], ids=["boxes", "walk"])
 def test_k1_uneven_paths_match_plain_on_card(use_bvh, cuda_device):
     """K1 with path regeneration against its plain version where path
@@ -617,3 +641,23 @@ def test_scene_file_on_card_matches_cpu(cuda_device, tmp_path):
                          "--spp", "4", "--device", device, "--out", str(out)]) == 0
         pngs.append(read_png(str(out)).astype(int))
     assert (pngs[0] != pngs[1]).mean() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["cornell_box", "mesh_showcase"])
+def test_sharded_render_on_card_matches_single_device(preset, cuda_device):
+    """Tiles of cuda:0 run one after another (K1 over each tile's pixel ids
+    on Cornell, the sorted wavefront on the tile-BVH mesh): the assembled
+    pass equals render_pass on the card bit for bit."""
+    from raytracingthenextweekcuda_tpu_torch.parallel.mesh import make_mesh
+    from raytracingthenextweekcuda_tpu_torch.parallel.render import render_pass_sharded
+
+    scene, camera = getattr(tpresets, preset)()
+    scene = finalize(scene)
+    cfg = RenderConfig(width=48, height=32, spp=2, bounces=5)
+    key = threefry.key(8)
+    single = integrator.render_pass(scene, camera, key, cfg, 2, device=cuda_device)
+    for n in (1, 2, 4):
+        out = render_pass_sharded(scene, camera, key, cfg, 2,
+                                  make_mesh(n, [cuda_device] * n))
+        assert torch.equal(out, single)
