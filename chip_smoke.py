@@ -19,7 +19,9 @@ Phases, each printing one line or more:
      small Cornell render on the card against the same render on the CPU;
   4. K1 main path: the headline benchmark (Cornell 512x512, 128 spp, 10
      bounces, one pass) through integrator.render, counting K1's launches
-     and checking the image;
+     and checking the image; its render_ms beside fp32_util, the
+     reference's op model over the card's FP32 lane rate (fp32_peak_ops,
+     read from the card), held in (0, 1.05];
   5. K1 plain time: the plain version at the headline config (32 spp,
      scaled to 128), the mean bounces a path it counted, and K1 against it
      on those same inputs (1e-4);
@@ -113,7 +115,12 @@ Phases, each printing one line or more:
  20. the live frontend: `live --script "w enter j ] x"` through `cli.main`
      at its defaults (Cornell, 256x256, 5 bounces, one K1 launch a frame):
      the frames' spp readouts (the walk's dirty reset) and the screenshot;
-     then `HTTPViewer(port=0)` serving a frame on 127.0.0.1.
+     then `HTTPViewer(port=0)` serving a frame on 127.0.0.1;
+ 21. the benchmark line: `rtnw-torch bench` at its defaults through
+     `cli.main`, one JSON line with the headline, its fp32_util in (0,
+     1.05] and the three mesh metrics (mesh_bvh, mesh_stress, mesh_large),
+     each with paths_per_sec > 0, counting K1's, K3's and K4's launches
+     and K4's stats launches.
 
 Every kernel's time stands beside its CTAs resident on one SM (its
 occupancy query at the launch's shared memory) and the waves its grid
@@ -170,21 +177,26 @@ def _event_ms(fn, reps: int) -> float:
 def _profiled_ms(fn, kernel: str, reps: int) -> float:
     """Mean device milliseconds a launch of the kernels named `kernel`
     (without the tile-BVH walk) over `reps` runs of `fn`, from
-    torch.profiler, after one warmup."""
+    torch.profiler, after one warmup. A trace that holds none of them (the
+    card's activity records were once lost this way, in one call of
+    several) is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if kernel in e.key and "<true>" not in e.key]
-    launches = sum(e.count for e in events)
-    if not launches:
-        raise AssertionError(f"no {kernel} device time in the profiler's trace")
-    return sum(e.device_time_total for e in events) / 1e3 / launches
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if kernel in e.key and "<true>" not in e.key]
+        launches = sum(e.count for e in events)
+        if launches:
+            return sum(e.device_time_total for e in events) / 1e3 / launches
+        print(f"[profiler] trace {attempt} of {reps} {kernel} launches holds none "
+              f"of them", flush=True)
+    raise AssertionError(f"no {kernel} device time in three profiler traces")
 
 
 def _host_ms(fn) -> tuple[float, object]:
@@ -446,6 +458,52 @@ def _check_mesh_image(name, film):
         raise AssertionError(f"{name}: centre rgb {centre} (want < 10), "
                              f"floor rgb {floor} (want > 100)")
     return centre, floor
+
+
+def _check_fp32_util(name, line) -> None:
+    """The reference's op model over the card's FP32 lane rate can exceed 1
+    only if the peak or the counts are wrong."""
+    util = line["fp32_util"]
+    if not (util is not None and 0 < util <= 1.05 and line["fp32_peak_ops"] > 0):
+        raise AssertionError(f"{name}: fp32_util {util} of fp32_peak_ops "
+                             f"{line['fp32_peak_ops']}, want (0, 1.05]")
+
+
+def _phase21(dev, card) -> None:
+    """`rtnw-torch bench` at its defaults through `cli.main`: one line with
+    the headline, its fp32_util and the three mesh metrics."""
+    import contextlib
+    import io
+
+    from raytracingthenextweekcuda_tpu_torch import cli
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bounce_kernel as bk
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
+
+    out = io.StringIO()
+    bk.KERNEL_LAUNCHES = k3.KERNEL_LAUNCHES = k4.KERNEL_LAUNCHES = k4.STATS_LAUNCHES = 0
+    with contextlib.redirect_stdout(out):
+        ms, rc = _host_ms(lambda: cli.main(["bench"]))
+    launches = (bk.KERNEL_LAUNCHES, k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES,
+                k4.STATS_LAUNCHES)
+    lines = out.getvalue().strip().splitlines()
+    line = json.loads(lines[-1]) if rc == 0 and lines else {}
+    if rc != 0 or min(launches) <= 0:
+        raise AssertionError(f"bench: rc {rc}, K1, K3, K4 and K4 stats launches "
+                             f"{launches}")
+    _check_fp32_util("bench", line)
+    for key in ("mesh_bvh", "mesh_stress", "mesh_large"):
+        if not line.get(key, {}).get("paths_per_sec", 0) > 0:
+            raise AssertionError(f"bench: no {key} paths_per_sec in {sorted(line)}")
+    print(f"[21 bench] {json.dumps(line)}", flush=True)
+    print(f"[21 bench] `rtnw-torch bench` through cli.main: {ms:.1f} ms host | "
+          f"headline render_ms {line['render_ms']:.3f}, fp32_util "
+          f"{line['fp32_util']} of fp32_peak_ops {line['fp32_peak_ops']:.6e} | "
+          + " | ".join(f"{k} {line[k]['paths_per_sec'] / 1e6:.2f} M paths/s "
+                       f"({line[k]['render_ms']:.1f} ms)"
+                       for k in ("mesh_bvh", "mesh_stress", "mesh_large"))
+          + f" | K1 launches {launches[0]}, K3 {launches[1]}, K4 {launches[2]}, K4 "
+          f"stats {launches[3]} | {card}", flush=True)
 
 
 def _phase18(dev, card, stats_inputs, primary, k4_bound, k4_occ) -> dict:
@@ -782,11 +840,12 @@ def main() -> None:
 
     # 4. K1 main path
     bk.KERNEL_LAUNCHES = 0
-    result = run_bench(device=dev, keep_film=True)
+    result = run_bench(device=dev, keep_film=True, mesh=False)
     k1_launches = bk.KERNEL_LAUNCHES
     film = result.pop("film")
     if k1_launches <= 0:
         raise AssertionError("the headline render did not launch K1")
+    _check_fp32_util("headline", result)
     mean = film.mean.cpu().numpy()
     if mean.shape != (512, 512, 3) or not np.isfinite(mean).all():
         raise AssertionError("headline image not finite or misshapen")
@@ -798,6 +857,10 @@ def main() -> None:
     print(f"[4 K1 main path] {json.dumps(result)} | K1 launches {k1_launches} | "
           f"left wall rgb {left.round(1).tolist()} right wall rgb "
           f"{right.round(1).tolist()}", flush=True)
+    print(f"[4 K1 main path] render_ms {result['render_ms']:.3f} | fp32_util "
+          f"{result['fp32_util']} of fp32_peak_ops {result['fp32_peak_ops']:.6e} "
+          f"(the reference's op model over SMs x 128 lanes x the maximum SM "
+          f"clock) | {card}", flush=True)
 
     # 5. K1 plain time at the headline config (32 spp, scaled to 128)
     cfg = RenderConfig(width=512, height=512, spp=128, bounces=10, spp_per_pass=128)
@@ -1612,6 +1675,7 @@ def main() -> None:
     del stats_inputs
     _phase19(dev, card)
     _phase20(dev)
+    _phase21(dev, card)
     src = "raytracingthenextweekcuda_tpu_torch/csrc/"
     ref = "raytracingthenextweekcuda_tpu/ops/pallas/"
     walk = f"{ref}bounce_kernel.py:820"  # the consensus walk in _bounce_core

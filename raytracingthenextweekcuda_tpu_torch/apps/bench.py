@@ -13,7 +13,10 @@ path, each on the procedural stand-in of its scene
 Each reports camera paths per second through `integrator.render` on one
 CUDA device, the wall time of the timed render (host clock around the
 render and a device synchronize), and the card's name and power limit as
-nvidia-smi prints them.
+nvidia-smi prints them. The headline's line also carries `fp32_util`, the
+reference's static op model of the render over the card's FP32 lane rate
+(`fp32_utilization`, `fp32_peak_ops`), and, as the reference's does, the
+three mesh metrics' lines.
 """
 
 from __future__ import annotations
@@ -22,6 +25,17 @@ import subprocess
 import time
 
 from raytracingthenextweekcuda_tpu_torch.config import RenderConfig
+
+FP32_LANES_PER_SM = 128  # a Hopper SM: 4 partitions of 32 FP32 lanes
+FP32_UTIL_NOTE = (
+    "the reference's static op model of the render (35 operations a sphere, "
+    "30 a plane, 43 a Havel triangle or quad, 110 a box a bounce, 90 for the "
+    "BSDF and bookkeeping a bounce, 40 for raygen) over the card's FP32 lane "
+    "rate (SMs x 128 lanes x the maximum SM clock, an FMA counted once); it "
+    "counts every bounce of every path, so it is an upper bound on useful "
+    "work; it is not the kernels' roofline bound, which counts the bounces "
+    "paths live and an FMA as two operations"
+)
 
 
 def card_info() -> str:
@@ -47,15 +61,73 @@ def _cuda_device(device):
     return device
 
 
+def fp32_peak_ops(device="cuda") -> float:
+    """The card's FP32 lane rate in operations a second, on the basis of
+    the reference's share of peak: one operation a lane a cycle, an FMA
+    counted once. SMs (`torch.cuda.get_device_properties`) x the 128 FP32
+    lanes of a Hopper SM x the maximum SM clock that nvidia-smi reads from
+    the card (`clocks.max.sm`). Raises where the clock cannot be read."""
+    import torch
+
+    device = _cuda_device(device)
+    props = torch.cuda.get_device_properties(device)
+    if props.major != 9:
+        raise RuntimeError(f"{props.name} is sm_{props.major}{props.minor}: the "
+                           f"FP32 lane count is known for Hopper (sm_90) only")
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=uuid,clocks.max.sm",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=30,
+        )
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise RuntimeError(f"cannot read the maximum SM clock: {e}") from e
+    uuid = str(props.uuid)
+    for line in out.stdout.splitlines():
+        card, _, mhz = line.partition(",")
+        if card.strip().endswith(uuid):
+            return props.multi_processor_count * FP32_LANES_PER_SM * float(mhz) * 1e6
+    raise RuntimeError(f"nvidia-smi gave no maximum SM clock for the card "
+                       f"{uuid} (rc {out.returncode}: {out.stdout!r} {out.stderr!r})")
+
+
+def fp32_utilization(scene, paths: int, bounces: int, dt: float, peak_ops: float):
+    """The share of `peak_ops` that a render of `paths` camera paths at
+    `bounces` bounces in `dt` seconds uses, by the reference's static op
+    model (its `_vpu_utilization`, raytracingthenextweekcuda_tpu/apps/
+    bench.py:117-144): every path tests every packed primitive at every
+    bounce (35 operations a sphere, 30 a plane, 43 a Havel triangle or
+    quad, 110 an oriented box), plus 90 for the BSDF and bookkeeping a
+    bounce and 40 for raygen. Paths that end early still count all their
+    bounces, so the share is an upper bound on useful work. None for a
+    scene that is not packed."""
+    p = scene.packed
+    if p is None:
+        return None
+    s_count, p_count, _ = p.counts
+    trih, quads, boxes = p.hcounts
+    per_bounce = (
+        35 * s_count + 30 * p_count + 43 * (trih + quads) + 110 * boxes + 90
+    )
+    flops = paths * (40 + bounces * per_bounce)
+    return flops / dt / peak_ops
+
+
 def run_bench(width: int = 512, height: int = 512, spp: int = 128,
               bounces: int = 10, spp_per_pass: int = 128, warmup: bool = True,
-              device="cuda", keep_film: bool = False) -> dict:
+              device="cuda", keep_film: bool = False, mesh: bool = True) -> dict:
+    """The headline: Cornell 512x512, 128 spp, 10 bounces, one pass. With
+    `mesh`, the line also carries the three mesh metrics at their defaults
+    (`mesh_bvh`, `mesh_stress`, `mesh_large`), as the reference's does; a
+    metric that fails raises."""
     import torch
 
     from raytracingthenextweekcuda_tpu_torch.models import integrator, presets
     from raytracingthenextweekcuda_tpu_torch.models.scene import finalize
+    from raytracingthenextweekcuda_tpu_torch.utils.timing import sync
 
     device = _cuda_device(device)
+    peak = fp32_peak_ops(device)  # raises before the render if unreadable
     scene, camera = presets.cornell_box()
     scene = finalize(scene)  # 24 cube triangles: brute force, 2 boxes
     cfg = RenderConfig(width=width, height=height, spp=spp, bounces=bounces,
@@ -65,12 +137,11 @@ def run_bench(width: int = 512, height: int = 512, spp: int = 128,
         warm = RenderConfig(width=width, height=height,
                             spp=min(spp_per_pass, spp), bounces=bounces,
                             spp_per_pass=spp_per_pass)
-        integrator.render(scene, camera, warm, device=device)
-        torch.cuda.synchronize(device)
+        sync(integrator.render(scene, camera, warm, device=device).accum)
 
     t0 = time.perf_counter()
     film = integrator.render(scene, camera, cfg, device=device)
-    torch.cuda.synchronize(device)
+    sync(film.accum)
     dt = time.perf_counter() - t0
 
     paths = width * height * spp
@@ -79,6 +150,9 @@ def run_bench(width: int = 512, height: int = 512, spp: int = 128,
         "value": paths / dt,
         "unit": "paths/s",
         "render_ms": dt * 1000.0,
+        "fp32_util": round(fp32_utilization(scene, paths, bounces, dt, peak), 4),
+        "fp32_peak_ops": peak,
+        "fp32_util_note": FP32_UTIL_NOTE,
         "config": {"width": width, "height": height, "spp": spp,
                    "bounces": bounces, "spp_per_pass": spp_per_pass},
         "device": torch.cuda.get_device_name(device),
@@ -86,6 +160,10 @@ def run_bench(width: int = 512, height: int = 512, spp: int = 128,
     }
     if keep_film:
         result["film"] = film
+    if mesh:
+        result["mesh_bvh"] = run_mesh_bench(device=device)
+        result["mesh_stress"] = run_mesh_stress(device=device)
+        result["mesh_large"] = run_mesh_large(device=device)
     return result
 
 

@@ -7,6 +7,7 @@ raytracingthenextweekcuda_tpu/cli.py):
                       [--checkpoint render.npz] [--debug-nan]
     rtnw-torch render --preset cornell --shards 4   # 4 pixel tiles, one a device
     rtnw-torch bench  [--width 512 --height 512 --spp 128 --bounces 10]
+                     # the headline with fp32_util and the three mesh metrics
     rtnw-torch bench --mesh          # tile-BVH mesh path, 512x512, 32 spp, 10 bounces
     rtnw-torch bench --mesh-stress   # the stress stand-in, same, with K4's leaf counters
     rtnw-torch bench --mesh-large    # the 261k-triangle stand-in, 8 spp, 5 bounces
@@ -131,7 +132,7 @@ def cmd_bench(args) -> int:
         spp = args.spp or 128
         result = bench.run_bench(width=args.width, height=args.height, spp=spp,
                                  bounces=bounces, spp_per_pass=spp,
-                                 device=args.device)
+                                 device=args.device, mesh=True)
     print(json.dumps(result))
     return 0
 
@@ -220,7 +221,8 @@ def main(argv=None) -> int:
     pr.add_argument("--out", default="render.png")
     pr.set_defaults(fn=cmd_render)
 
-    pb = sub.add_parser("bench", help="headline or mesh benchmark, one JSON line")
+    pb = sub.add_parser("bench", help="one JSON line: the headline with the three "
+                        "mesh metrics, or one mesh metric")
     which = pb.add_mutually_exclusive_group()
     which.add_argument("--mesh", action="store_true",
                        help="mesh metric 1: the tile-BVH mesh benchmark (32 spp in "

@@ -34,7 +34,8 @@ from raytracingthenextweekcuda_tpu_torch.ops.cuda.intersect_kernel import (
     analytic_rows,
     intersect_packed,
 )
-from raytracingthenextweekcuda_tpu_torch.ops.intersect import leaf, take_rows
+from raytracingthenextweekcuda_tpu_torch.ops.intersect import leaf
+from raytracingthenextweekcuda_tpu_torch.ops.linalg import take_rows
 from raytracingthenextweekcuda_tpu_torch.ops.rays import Hit, Rays, face_normal
 from raytracingthenextweekcuda_tpu_torch.ops.wavefront_sort import safe_inv
 

@@ -33,17 +33,6 @@ def leaf(x, device, dtype=torch.float32) -> torch.Tensor:
     return torch.as_tensor(x, device=device).to(dtype)
 
 
-def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """`table[idx]` for a float table of a few rows gathered by every ray.
-    The same values as indexing, but its backward is a segmented sum over
-    the sorted indices: indexing's backward accumulates the rays of one
-    row one after another, tens of milliseconds a call on the card when
-    262,144 rays share a few rows."""
-    if table.dim() == 1:
-        return torch.nn.functional.embedding(idx, table[:, None])[:, 0]
-    return torch.nn.functional.embedding(idx, table)
-
-
 def _reduce_closest(rays: Rays, t, valid, outward_fn, material_id) -> Hit:
     """Each ray's closest valid candidate of (R, P) `t` (the first of equal
     minima), as a Hit; `outward_fn(best, best_t)` gives the winners'
@@ -96,7 +85,7 @@ def intersect_spheres(rays: Rays, spheres: Spheres, tmin, tmax) -> Hit:
 
     def outward(best, best_t):
         center = centers[torch.arange(best.shape[0], device=dev), best]
-        return (rays.at(best_t) - center) / take_rows(radius, best)[:, None]
+        return (rays.at(best_t) - center) / linalg.take_scalar(radius, best)[:, None]
 
     return _reduce_closest(rays, t, valid, outward,
                            leaf(spheres.material_id, dev, torch.int64))
@@ -128,7 +117,7 @@ def intersect_planes(rays: Rays, planes: Planes, tmin, tmax) -> Hit:
                                        in_x & in_z))
     valid = proceed & in_range & (t >= tmin) & (t < tmax)
     return _reduce_closest(rays, t, valid,
-                           lambda best, _: take_rows(normal, best),
+                           lambda best, _: linalg.take_rows(normal, best),
                            leaf(planes.material_id, dev, torch.int64))
 
 
@@ -163,9 +152,9 @@ def intersect_triangles(rays: Rays, triangles: Triangles, tmin, tmax,
         rays, leaf(triangles.vertices, dev).reshape(-1, 3, 3), tmin, tmax,
         backface_cull)
     return _reduce_closest(rays, t, valid,
-                           lambda best, _: linalg.normalize(take_rows(geom_n, best)),
+                           lambda best, _: linalg.normalize(linalg.take_rows(geom_n, best)),
                            leaf(triangles.material_id, dev, torch.int64))
 
 
 __all__ = ["intersect_planes", "intersect_spheres", "intersect_triangles",
-           "leaf", "moller_trumbore", "take_rows"]
+           "leaf", "moller_trumbore"]

@@ -26,7 +26,8 @@ from raytracingthenextweekcuda_tpu_torch.ops.geometry import (
     REFRACTION,
     SPECULAR,
 )
-from raytracingthenextweekcuda_tpu_torch.ops.intersect import leaf, take_rows
+from raytracingthenextweekcuda_tpu_torch.ops.intersect import leaf
+from raytracingthenextweekcuda_tpu_torch.ops.linalg import take_rows, take_scalar
 from raytracingthenextweekcuda_tpu_torch.ops.rays import Hit, Rays
 
 
@@ -53,7 +54,7 @@ def gather(table: MaterialRows, material_id: torch.Tensor) -> MaterialRows:
     caller masks."""
     idx = torch.clamp_min(material_id, 0)
     return MaterialRows(table.kind[idx], take_rows(table.albedo, idx),
-                        take_rows(table.param, idx), take_rows(table.emission, idx))
+                        take_scalar(table.param, idx), take_rows(table.emission, idx))
 
 
 class Scatter(NamedTuple):

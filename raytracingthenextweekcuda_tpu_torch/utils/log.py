@@ -1,10 +1,27 @@
-"""Device info (counterpart of raytracingthenextweekcuda_tpu/utils/log.py):
-the report the render CLI prints first, as the reference CUDA renderer
+"""Logging and device info (counterpart of
+raytracingthenextweekcuda_tpu/utils/log.py): one stdlib logger namespace,
+and the report the render CLI prints first, as the reference CUDA renderer
 dumps the GPU's properties (Utils.h:135-164)."""
 
 from __future__ import annotations
 
+import logging
+
 import torch
+
+
+def get_logger(name: str = "rtnw-torch") -> logging.Logger:
+    """The logger `name`, given on first use a stderr handler that prints
+    `[LEVEL name] message` and the level INFO, as the reference's."""
+    logger = logging.getLogger(name)
+    if not logger.handlers:
+        handler = logging.StreamHandler()
+        handler.setFormatter(
+            logging.Formatter("[%(levelname)s %(name)s] %(message)s")
+        )
+        logger.addHandler(handler)
+        logger.setLevel(logging.INFO)
+    return logger
 
 
 def report_devices() -> str:

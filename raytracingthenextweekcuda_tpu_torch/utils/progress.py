@@ -29,3 +29,8 @@ class Progress:
             sys.stderr.flush()
             while self._next <= pct:
                 self._next += STEP_PERCENT
+
+    def finish(self) -> None:
+        """Count what is left, printing the 100% line if not yet printed."""
+        if self.done < self.total:
+            self.update(self.total - self.done)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from contextlib import contextmanager
 
 import torch
 
@@ -48,6 +49,21 @@ class Timer:
             sync(result)
         self.elapsed_ms = (time.perf_counter() - self._start) * 1e3
         return self.elapsed_ms
+
+
+@contextmanager
+def timed(label: str, printer=print):
+    """Context manager printing '<label>: N ms' around its body, as the
+    reference renderer's GPUTimer around the offline render
+    (main.cu:944-946). It yields a dict: put the body's result under
+    "result" and the device is synchronized on it before the clock stops."""
+    t = Timer().start()
+    box = {}
+    try:
+        yield box
+    finally:
+        ms = t.stop(box.get("result"))
+        printer(f"{label}: {ms:.3f} ms")
 
 
 def throughput(paths: int, ms: float) -> float:

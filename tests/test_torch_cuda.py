@@ -8,8 +8,10 @@ bit for bit, K4 also for every count of rays that need a leaf, on ties
 and on skipped prefetches, and K4's stats counters equal to the plain
 version's), renders (and one backward of the differentiable wavefront and
 of the LBVH regime, and a scene file through `render --scene`) on the card
-against the same on the CPU, and tile-sharded passes on the card against
-render_pass there. These tests skip without a card. The file imports no
+against the same on the CPU, tile-sharded passes on the card against
+render_pass there, and the benchmark line (`run_bench(mesh=True)`: its
+FP32 share in (0, 1.05] and the three mesh metrics). These tests skip
+without a card. The file imports no
 jax, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -661,3 +663,16 @@ def test_sharded_render_on_card_matches_single_device(preset, cuda_device):
         out = render_pass_sharded(scene, camera, key, cfg, 2,
                                   make_mesh(n, [cuda_device] * n))
         assert torch.equal(out, single)
+
+
+@pytest.mark.cuda
+def test_bench_line_on_card(cuda_device):
+    """`run_bench(mesh=True)`: the headline's share of the card's FP32 lane
+    rate by the reference's op model lies in (0, 1.05], and the line
+    carries the three mesh metrics."""
+    from raytracingthenextweekcuda_tpu_torch.apps import bench
+
+    line = bench.run_bench(device=cuda_device, mesh=True)
+    assert 0 < line["fp32_util"] <= 1.05 and line["fp32_peak_ops"] > 0
+    for key in ("mesh_bvh", "mesh_stress", "mesh_large"):
+        assert line[key]["paths_per_sec"] > 0
