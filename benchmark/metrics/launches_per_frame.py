@@ -1,0 +1,9 @@
+"""Device kernels launched a preview frame (torch.profiler's kernel
+records)."""
+
+
+def read(ctx):
+    if ctx.kind != "preview" or ctx.trace is None or not ctx.trace.jobs:
+        return None
+    n = len(ctx.trace.kernels())
+    return n / ctx.trace.jobs if n else None
