@@ -39,6 +39,12 @@ kernels carry `_grad_probe`: a backward through them raises.
 The key tree is the reference's: `key(seed)`, `fold_in(key, pass)` per
 pass, `split(pass_key, samples)` per sample, as host threefry words
 (ops/threefry.py).
+
+The layers of a render lie in spans (utils/timing.span) that a running
+torch.profiler records: `integrator.render` an image, `integrator.prep` a
+pass, and on the sorted wavefront `wavefront.prep`, `wavefront.sort`,
+`wavefront.bounce` and `wavefront.unsort`; `host.read` marks each read of
+a device value. Without a profiler they cost one check each.
 """
 
 from __future__ import annotations
@@ -87,6 +93,7 @@ from raytracingthenextweekcuda_tpu_torch.ops.wavefront_sort import (
     ray_sort_key,
     unsort_radiance,
 )
+from raytracingthenextweekcuda_tpu_torch.utils.timing import span
 
 SKY_WHITE = (1.0, 1.0, 1.0)
 SKY_BLUE = (0.5, 0.7, 1.0)
@@ -255,26 +262,31 @@ def _trace_sorted(scene: Scene, ds: DeviceScene, mats: MaterialRows,
     stride = max(1, int(cfg.sort_stride))
     for b in range(cfg.bounces):
         if b > 0 and cfg.sort_rays and (b - 1) % stride == 0:
-            rays_b, tp, rad, alive = state
-            key = ray_sort_key(rays_b.origin.detach(), rays_b.direction.detach(),
-                               alive, lo, hi)
-            key, perm = torch.sort(key, stable=True)
-            n_live = int((key != DEAD_KEY).sum())
-            dead, keep = perm[n_live:], perm[:n_live]
-            done_slots.append(slot[dead])
-            done_rad.append(rad[dead])
-            slot = slot[keep]
-            state = (rays_b.take(keep), tp[keep], rad[keep], alive[keep])
+            with span("wavefront.sort"):
+                rays_b, tp, rad, alive = state
+                key = ray_sort_key(rays_b.origin.detach(),
+                                   rays_b.direction.detach(), alive, lo, hi)
+                key, perm = torch.sort(key, stable=True)
+                with span("host.read"):
+                    n_live = int((key != DEAD_KEY).sum())
+                dead, keep = perm[n_live:], perm[:n_live]
+                done_slots.append(slot[dead])
+                done_rad.append(rad[dead])
+                slot = slot[keep]
+                state = (rays_b.take(keep), tp[keep], rad[keep], alive[keep])
         elif b > 0:
-            n_live = int(state[3].any())
+            with span("host.read"):
+                n_live = int(state[3].any())
         else:
             n_live = n
         if n_live == 0:  # whole-wavefront early-out
             break
-        state = _bounce_body(ds, mats, used_kinds, cfg, state, ctx_of(slot), b)
-    done_slots.append(slot)
-    done_rad.append(state[2])
-    return unsort_radiance(torch.cat(done_slots), torch.cat(done_rad), n)
+        with span("wavefront.bounce"):
+            state = _bounce_body(ds, mats, used_kinds, cfg, state, ctx_of(slot), b)
+    with span("wavefront.unsort"):
+        done_slots.append(slot)
+        done_rad.append(state[2])
+        return unsort_radiance(torch.cat(done_slots), torch.cat(done_rad), n)
 
 
 def _trace_wavefront(target, mats: MaterialRows, used_kinds, rays: Rays,
@@ -286,8 +298,11 @@ def _trace_wavefront(target, mats: MaterialRows, used_kinds, rays: Rays,
     state = (rays, torch.ones((n, 3), device=dev), torch.zeros((n, 3), device=dev),
              torch.ones((n,), dtype=torch.bool, device=dev))
     for b in range(cfg.bounces):
-        if b > 0 and not bool(state[3].any()):  # whole-wavefront early-out
-            break
+        if b > 0:
+            with span("host.read"):
+                live = bool(state[3].any())
+            if not live:  # whole-wavefront early-out
+                break
         state = _bounce_body(target, mats, used_kinds, cfg, state, ctx, b)
     return state[2]
 
@@ -330,13 +345,15 @@ def _render_pass_sorted(scene: Scene, frame, sample_words,
     samples = sample_words.shape[0]
     group = max(1, min(samples, _SORT_WAVEFRONT_CAP // max(n, 1),
                        _SORT_SAMPLE_GROUP_CAP))
-    ds, mats = _scene_on(scene, device)
+    with span("wavefront.prep"):
+        ds, mats = _scene_on(scene, device)
     accum = torch.zeros((n, 3), dtype=torch.float32, device=device)
     for start in range(0, samples, group):
         words = sample_words[start: start + group]
-        rays, _ = camera_mod.generate_rays_multi(frame, words, cfg.width,
-                                                 cfg.height, device)
-        tb0, tb1 = rng.key_bases(words, device)
+        with span("wavefront.prep"):
+            rays, _ = camera_mod.generate_rays_multi(frame, words, cfg.width,
+                                                     cfg.height, device)
+            tb0, tb1 = rng.key_bases(words, device)
 
         def ctx_of(slot):
             sid = torch.div(slot, n, rounding_mode="floor")
@@ -353,8 +370,9 @@ def render_pass(scene: Scene, camera: camera_mod.Camera, key: np.ndarray,
     """Trace `samples` spp and return the summed radiance (H, W, 3) on
     `device`."""
     device = device_or_raise(device)
-    frame = camera_mod.derive(camera, cfg.aspect_ratio)
-    sample_words = threefry.split(key, samples)
+    with span("integrator.prep"):
+        frame = camera_mod.derive(camera, cfg.aspect_ratio)
+        sample_words = threefry.split(key, samples)
     if _sorted_eligible(scene):
         accum = _render_pass_sorted(scene, frame, sample_words, cfg, device)
     elif _fused_eligible(scene, cfg):
@@ -415,12 +433,13 @@ def render_gbuffer(scene: Scene, camera: camera_mod.Camera, key: np.ndarray,
 def render(scene: Scene, camera: camera_mod.Camera, cfg: RenderConfig,
            key: np.ndarray | None = None, device="cuda") -> Film:
     """Full offline render: accumulate cfg.spp over passes into a Film."""
-    device = device_or_raise(device)
-    if key is None:
-        key = threefry.key(cfg.seed)
-    film = Film.create(cfg.width, cfg.height, device=device)
-    for i, chunk in enumerate(cfg.passes()):
-        pass_key = threefry.fold_in(key, i)
-        film = film.add(render_pass(scene, camera, pass_key, cfg, chunk,
-                                    device=device), chunk)
-    return film
+    with span("integrator.render"):
+        device = device_or_raise(device)
+        if key is None:
+            key = threefry.key(cfg.seed)
+        film = Film.create(cfg.width, cfg.height, device=device)
+        for i, chunk in enumerate(cfg.passes()):
+            pass_key = threefry.fold_in(key, i)
+            film = film.add(render_pass(scene, camera, pass_key, cfg, chunk,
+                                        device=device), chunk)
+        return film

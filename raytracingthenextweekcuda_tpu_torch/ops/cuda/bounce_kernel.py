@@ -72,6 +72,7 @@ from raytracingthenextweekcuda_tpu_torch.ops.geometry import (
 )
 from raytracingthenextweekcuda_tpu_torch.ops.rays import Rays
 from raytracingthenextweekcuda_tpu_torch.ops.rng import pcg4d, to_uniform
+from raytracingthenextweekcuda_tpu_torch.utils.timing import span
 
 SKY_WHITE = (1.0, 1.0, 1.0)
 SKY_BLUE = (0.5, 0.7, 1.0)
@@ -686,7 +687,8 @@ def render_samples(packed: PackedScene, frame, sample_words, cfg,
     radiance (N, 3) float32 on `device`: K1 on a CUDA device, the plain
     version on the CPU.
     """
-    inp = render_inputs(packed, frame, sample_words, cfg, pixel_ids, device)
+    with span("k1.prep"):
+        inp = render_inputs(packed, frame, sample_words, cfg, pixel_ids, device)
     return guard(render_kernel(inp), *(getattr(frame, f.name)
                                         for f in dataclasses.fields(frame)))
 
@@ -806,7 +808,10 @@ def _scene_specs(inp: SceneInputs) -> tuple:
                   (inp.trih_aos, torch.float32, (cols, HAVEL_ROWS)))
         if inp.trih_aos.data_ptr() % 16:
             raise ValueError("tile-BVH input trih_aos: not aligned to 16 bytes")
-        if not bool(((inp.bvh_count >= 0) & (inp.bvh_count <= inp.leaf_tile)).all()):
+        with span("host.read"):
+            counts_ok = bool(((inp.bvh_count >= 0)
+                              & (inp.bvh_count <= inp.leaf_tile)).all())
+        if not counts_ok:
             raise ValueError(f"tile-BVH input bvh_count: a leaf's real columns "
                              f"outside its tile of {inp.leaf_tile}")
     return specs

@@ -43,6 +43,7 @@ from raytracingthenextweekcuda_tpu_torch.ops.cuda.work import (
     tile_triangles,
 )
 from raytracingthenextweekcuda_tpu_torch.ops.wavefront_sort import safe_inv
+from raytracingthenextweekcuda_tpu_torch.utils.timing import span
 
 # Rays per work-list block: one CTA of K4.
 BLOCK = 128
@@ -238,7 +239,8 @@ def intersect_packed_bvh(rays, scene: LeafScene, tmin: float = EPSILON,
     [walked, evaluated], as the reference's `stats=True` does.
     """
     args = winner_inputs(rays, scene, tmin, alive, t_cap)
-    out = winner(*args, scene, tmin, stats=stats)
+    with span("k4.winner"):
+        out = winner(*args, scene, tmin, stats=stats)
     t, code = out[0][:rays.count], out[1][:rays.count]
     if stats:
         return t, code, (args[4].counts, out[2])
@@ -264,8 +266,9 @@ def winner_inputs(rays, scene: LeafScene, tmin: float, alive=None, t_cap=None):
     tcap = torch.full((n + pad,), BIG, dtype=f32, device=dev)
     if t_cap is not None:
         tcap[:n] = torch.clamp_max(t_cap.to(f32), BIG)
-    wl = build_worklist(origin, direction, alive, scene.leaf_bounds, tmin,
-                        tcap=tcap, frustum=use_frustum_worklist(scene.n_leaves))
+    with span("k4.worklist"):
+        wl = build_worklist(origin, direction, alive, scene.leaf_bounds, tmin,
+                            tcap=tcap, frustum=use_frustum_worklist(scene.n_leaves))
     return origin, direction, alive, tcap, wl
 
 

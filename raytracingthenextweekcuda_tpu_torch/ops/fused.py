@@ -38,6 +38,7 @@ from raytracingthenextweekcuda_tpu_torch.ops.intersect import leaf
 from raytracingthenextweekcuda_tpu_torch.ops.linalg import take_rows
 from raytracingthenextweekcuda_tpu_torch.ops.rays import Hit, Rays, face_normal
 from raytracingthenextweekcuda_tpu_torch.ops.wavefront_sort import safe_inv
+from raytracingthenextweekcuda_tpu_torch.utils.timing import span
 
 
 class DeviceScene(NamedTuple):
@@ -110,7 +111,8 @@ def intersect_scene_fused(dev_scene: DeviceScene, rays: Rays, tmin: float,
     sees the rays detached; the recompute sees them as they are."""
     sel = Rays(rays.origin.detach(), rays.direction.detach(),
                rays.time.detach())
-    t_sel, code = intersect_packed(sel, dev_scene.analytic, tmin, alive=alive)
+    with span("k3.intersect"):
+        t_sel, code = intersect_packed(sel, dev_scene.analytic, tmin, alive=alive)
     if dev_scene.leaves is not None:
         alive_mesh, t_cap = mesh_query(dev_scene.leaves, sel, tmin, alive,
                                        t_sel, code)

@@ -3,13 +3,16 @@
 Replaces GPUTimer's cudaEvent pairs (GPUTimer.h:12-35) and the host Clock
 (CUDAPathTracer.h:65-70). PyTorch queues CUDA work and returns, so `sync`
 waits for the device before a host clock is read.
+
+`span(name)` marks a layer of the renderer on torch.profiler's trace, on
+the clock of the device's events; without a profiler it does nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import torch
 
@@ -64,6 +67,19 @@ def timed(label: str, printer=print):
     finally:
         ms = t.stop(box.get("result"))
         printer(f"{label}: {ms:.3f} ms")
+
+
+_NO_SPAN = nullcontext()
+
+
+def span(name: str):
+    """A context manager that records `name` as a span of torch.profiler's
+    trace, nested in the span around it on this thread, while a profiler
+    records; else one shared no-op. Either way it adds no device work and
+    no host synchronization."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 def throughput(paths: int, ms: float) -> float:
