@@ -6,12 +6,13 @@ Phases, each printing one line or more:
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: compile K1, K2 and K0 (csrc/render_kernel.cu, each with and
      without the tile-BVH walk), K3 (csrc/intersect_kernel.cu) and K4
-     (csrc/bvh_winner_kernel.cu) with nvcc, one process per source;
+     (csrc/bvh_winner_kernel.cu) and the work-list kernel
+     (csrc/worklist_kernel.cu) with nvcc, one process per source;
      ptxas's registers and spills per kernel, K1 without the walk held at
      K1_REGS registers and K1_SPILL bytes of spills or fewer, beside those
      of K1, K2 and K0 with the walk, and K4's production instantiation at
-     K4_REGS and K4_SPILL, beside its stats instantiation; the tile-BVH
-     builder;
+     K4_REGS and K4_SPILL, beside its stats instantiation, and the
+     work-list kernel's; the tile-BVH builder;
   3. K1 vs plain: K1 against its plain torch version on the same CUDA
      tensors, 5 presets at 64x64, 4 spp, 6 bounces, plus Cornell with
      Russian roulette and with the sky off (rtol = atol = 1e-4; smallpt by
@@ -33,7 +34,8 @@ Phases, each printing one line or more:
      the same render on the CPU (rtol = atol = 1e-4);
   8. mesh main path: the mesh benchmark (the 960-triangle stand-in,
      512x512, 32 spp, 10 bounces, passes of 16 spp, sorted) through
-     integrator.render, counting K3's and K4's launches and checking the
+     integrator.render, counting K3's, K4's and the work-list kernel's
+     launches and checking the
      image; then K4's summed device time over one more render's launches
      (torch.profiler);
   9. K3 and K4 times: CUDA events of each kernel on the full-size primary
@@ -120,7 +122,15 @@ Phases, each printing one line or more:
      `cli.main`, one JSON line with the headline, its fp32_util in (0,
      1.05] and the three mesh metrics (mesh_bvh, mesh_stress, mesh_large),
      each with paths_per_sec > 0, counting K1's, K3's and K4's launches
-     and K4's stats launches.
+     and K4's stats launches;
+ 22. the work-list kernel (csrc/worklist_kernel.cu): the exact pass of
+     build_worklist against its plain torch loop on the same CUDA inputs
+     (counts and order bit for bit, entry equal in value) on the
+     benchmark's mesh (`benchmark/configs/mesh_stress`, 84 leaves) primary
+     and bounce-2 wavefronts and on mesh_large's primary wavefront (496
+     leaves); on each, the kernel's time (CUDA events) beside its bound
+     and the plain loop's time (CUDA events), with its registers and
+     spills (ptxas) and its CTAs a SM.
 
 Every kernel's time stands beside its CTAs resident on one SM (its
 occupancy query at the launch's shared memory) and the waves its grid
@@ -724,6 +734,79 @@ def _phase20(dev) -> None:
           f"frame", flush=True)
 
 
+def _worklist_bound(args, n_leaves) -> tuple:
+    """The work-list kernel's bound: each live ray's slab test of every leaf
+    box (NODE_OPS each); it reads the rays, their alive flags and ceilings
+    and the leaf boxes once and writes each block's count and list."""
+    n = args[0].shape[0]
+    blocks = n // 128
+    nbytes = (n * (12 + 12 + 1 + 4) + 6 * n_leaves * 4
+              + blocks * (4 + n_leaves * 8))
+    return _bound(nbytes, int(args[2].sum()) * n_leaves * NODE_OPS)
+
+
+def _phase22(dev, card, wl_regs) -> dict:
+    """The work-list kernel against its plain torch loop on the benchmark's
+    mesh wavefronts and on mesh_large's, with times, bounds and residency.
+    Returns its entry of the kernels line (the benchmark's primary
+    wavefront)."""
+    from benchmark import program, scenedata
+    from raytracingthenextweekcuda_tpu_torch.apps import bench_scenes
+    from raytracingthenextweekcuda_tpu_torch.config import EPSILON, RenderConfig
+    from raytracingthenextweekcuda_tpu_torch.models.scene import finalize
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
+    from raytracingthenextweekcuda_tpu_torch.ops.fused import mesh_query
+
+    bench_scene, bench_cam = program.build_scene(scenedata.load_config("mesh_stress"))
+    large, large_cam, _ = bench_scenes.large_mesh_scene()
+    cases = (("benchmark mesh", finalize(bench_scene), bench_cam,
+              RenderConfig(width=512, height=512, spp=32, bounces=10,
+                           spp_per_pass=16), 16, ("primary", "bounce2")),
+             ("mesh_large", finalize(large), large_cam,
+              RenderConfig(width=512, height=512, spp=8, bounces=5,
+                           spp_per_pass=8), 8, ("primary",)))
+    out = None
+    for label, scene, camera, cfg, samples, keep in cases:
+        ds, fronts = _wavefronts(scene, camera, cfg, samples, dev)
+        L = ds.leaves.n_leaves
+        for front, rays, alive in fronts:
+            if front not in keep:
+                continue
+            t, code = k3.intersect_packed(rays, ds.analytic, EPSILON, alive=alive)
+            alive_mesh, t_cap = mesh_query(ds.leaves, rays, EPSILON, alive, t, code)
+            before = k4.WORKLIST_LAUNCHES
+            args = k4.winner_inputs(rays, ds.leaves, EPSILON, alive_mesh, t_cap)
+            if k4.WORKLIST_LAUNCHES != before + 1:
+                raise AssertionError(f"{label}/{front}: the build launched the "
+                                     f"work-list kernel "
+                                     f"{k4.WORKLIST_LAUNCHES - before} times")
+            wl = args[4]
+            plain = k4.worklist_reference(*args[:4], ds.leaves.leaf_bounds, EPSILON)
+            for name in ("counts", "order", "entry"):
+                if not torch.equal(getattr(wl, name), getattr(plain, name)):
+                    bad = int((getattr(wl, name) != getattr(plain, name)).sum())
+                    raise AssertionError(f"work-list kernel {label}/{front}: {bad} "
+                                         f"values of {name} differ from the plain "
+                                         f"loop's")
+            ms = _event_ms(lambda: k4.build_worklist(
+                *args[:3], ds.leaves.leaf_bounds, EPSILON, tcap=args[3]), reps=10)
+            plain_ms = _event_ms(lambda: k4.worklist_reference(
+                *args[:4], ds.leaves.leaf_bounds, EPSILON), reps=3)
+            bound = _worklist_bound(args, L)
+            res = _residency("rtnw_worklist_occupancy", (L,), args[0].shape[0])
+            print(f"[22 work-list kernel] {label}/{front}: {rays.count} rays "
+                  f"({int(args[2].sum())} to K4), {L} leaves, mean list "
+                  f"{float(wl.counts.float().mean()):.2f} | counts and order bit for "
+                  f"bit, entry equal | kernel {ms:.4f} ms (CUDA events, mean of 10; "
+                  f"{_res(res)}; {wl_regs[0]} registers, {wl_regs[1]} bytes of "
+                  f"spills) vs bound {bound[0]:.4f} ms ({bound[1]}) | plain loop "
+                  f"{plain_ms:.3f} ms (CUDA events, mean of 3) | {card}", flush=True)
+            if out is None:
+                out = {"ms": ms, "plain_ms": plain_ms, "bound": bound, "res": res}
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -793,6 +876,13 @@ def main() -> None:
     print(f"[2 build] K4 registers, spill bytes: production "
           f"{regs_spills['bvh_winner_kernel<false>']}, with the stats counters "
           f"{regs_spills['bvh_winner_kernel<true>']}", flush=True)
+    wl_line = ptxas_lines.get("worklist_kernel", "")
+    regs = re.search(r"Used (\d+) registers", wl_line)
+    spill = re.search(r"(\d+) bytes spill stores", wl_line)
+    if not (regs and spill):
+        raise AssertionError("no ptxas registers and spills for worklist_kernel")
+    wl_regs = (int(regs.group(1)), int(spill.group(1)))
+    print(f"[2 build] work-list kernel registers, spill bytes: {wl_regs}", flush=True)
     regs, spill = regs_spills["bvh_winner_kernel<false>"]
     if regs > K4_REGS or spill > K4_SPILL:
         raise AssertionError(f"K4's production instantiation: {regs} registers and "
@@ -959,17 +1049,20 @@ def main() -> None:
 
     # 8. mesh main path
     k3.KERNEL_LAUNCHES = 0
-    k4.KERNEL_LAUNCHES = 0
+    k4.KERNEL_LAUNCHES = k4.WORKLIST_LAUNCHES = 0
     mesh_result = run_mesh_bench(device=dev, keep_film=True)
     k3_launches, k4_launches = k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES
+    wl_launches = k4.WORKLIST_LAUNCHES
     film = mesh_result.pop("film")
-    if k3_launches <= 0 or k4_launches <= 0:
-        raise AssertionError(f"the mesh render launched K3 {k3_launches} and "
-                             f"K4 {k4_launches} times")
+    if k3_launches <= 0 or k4_launches <= 0 or wl_launches != k4_launches:
+        raise AssertionError(f"the mesh render launched K3 {k3_launches}, K4 "
+                             f"{k4_launches} and the work-list kernel "
+                             f"{wl_launches} times")
     sorted_mesh = film.mean.cpu().numpy()
     centre, floor = _check_mesh_image("mesh image", film)
     print(f"[8 mesh main path] {json.dumps(mesh_result)} | K3 launches "
-          f"{k3_launches} K4 launches {k4_launches} | centre (sphere) rgb "
+          f"{k3_launches} K4 launches {k4_launches} work-list launches "
+          f"{wl_launches} | centre (sphere) rgb "
           f"{centre.round(2).tolist()} floor rgb {floor.round(1).tolist()}",
           flush=True)
     # K4's summed device time over the launches of one mesh render.
@@ -1676,6 +1769,7 @@ def main() -> None:
     _phase19(dev, card)
     _phase20(dev)
     _phase21(dev, card)
+    wl = _phase22(dev, card, wl_regs)
     src = "raytracingthenextweekcuda_tpu_torch/csrc/"
     ref = "raytracingthenextweekcuda_tpu/ops/pallas/"
     walk = f"{ref}bounce_kernel.py:820"  # the consensus walk in _bounce_core
@@ -1711,6 +1805,9 @@ def main() -> None:
         entry(k4_stats["name"], k4_stats["source"], k4_stats["replaces"],
               k4_stats["launches"], 0.0, k4_stats["ms"], k4_stats["plain_ms"],
               k4_stats["bound"], k4_stats["res"]),
+        entry("work-list worklist_kernel", "worklist_kernel.cu",
+              f"none (XLA ops: {ref}bvh_winner_kernel.py:96)", wl_launches, 0.0,
+              wl["ms"], wl["plain_ms"], wl["bound"], wl["res"]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -187,6 +187,15 @@ def load() -> ctypes.CDLL:
             vp,                      # cudaStream_t
         ]
         fn.restype = ci
+        fn = lib.rtnw_worklist  # the exact work-list build
+        fn.argtypes = [
+            vp, vp, vp, vp,          # origin, direction, alive (u8), tcap
+            ci, vp, ci,              # n_blocks, leaf_bounds, n_leaves
+            cf,                      # tmin
+            vp, vp, vp,              # counts, order (int32*), entry (float*) out
+            vp,                      # cudaStream_t
+        ]
+        fn.restype = ci
         # CTAs a SM of each kernel at a launch's shared memory.
         ip = ctypes.POINTER(ci)
         fn = lib.rtnw_render_occupancy  # K1, K2, K0
@@ -200,6 +209,9 @@ def load() -> ctypes.CDLL:
         fn = lib.rtnw_bvh_winner_occupancy  # K4
         fn.argtypes = [ci, ip, ip]          # leaf buffer width; CTAs, threads
         fn.restype = ci
+        fn = lib.rtnw_worklist_occupancy  # the work-list build
+        fn.argtypes = [ci, ip, ip]          # n_leaves; CTAs, threads
+        fn.restype = ci
         lib.rtnw_error_string.argtypes = [ci]
         lib.rtnw_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -209,8 +221,9 @@ def load() -> ctypes.CDLL:
 def occupancy(query: str, *args: int) -> tuple[int, int]:
     """(CTAs resident on one SM, threads a CTA) of a kernel at a launch's
     shared memory, from its query in the library: `rtnw_render_occupancy`
-    (K1, K2 or K0), `rtnw_closest_hit_occupancy` (K3) or
-    `rtnw_bvh_winner_occupancy` (K4), with that launch's size arguments."""
+    (K1, K2 or K0), `rtnw_closest_hit_occupancy` (K3),
+    `rtnw_bvh_winner_occupancy` (K4) or `rtnw_worklist_occupancy` (the
+    work-list build), with that launch's size arguments."""
     ctas, threads = ctypes.c_int(0), ctypes.c_int(0)
     err = getattr(load(), query)(*args, ctypes.byref(ctas), ctypes.byref(threads))
     if err != 0:

@@ -2,13 +2,15 @@
 and the winner kernel K4 (counterpart of
 raytracingthenextweekcuda_tpu/ops/pallas/bvh_winner_kernel.py).
 
-1. `build_worklist` (torch): slab-test every live ray against every leaf
-   box, reduce per 128-ray block to (any hit, nearest entry) per leaf, and
-   sort each block's hit leaves by entry distance. A leaf entered only
-   behind a ray's analytic ceiling `tcap` is not listed for it. Above
-   FRUSTUM_LEAF_THRESHOLD leaves a conservative packet-frustum pass, one
-   interval slab test per block, replaces the per-ray pass; its lists are
-   supersets and the kernel's per-ray re-check makes the extras inert.
+1. `build_worklist`: slab-test every live ray against every leaf box,
+   reduce per 128-ray block to (any hit, nearest entry) per leaf, and sort
+   each block's hit leaves by entry distance. A leaf entered only behind a
+   ray's analytic ceiling `tcap` is not listed for it. On CUDA tensors this
+   exact pass is one launch of csrc/worklist_kernel.cu; on CPU tensors its
+   plain version `worklist_reference`, a chunked torch loop, runs. Above
+   FRUSTUM_LEAF_THRESHOLD leaves a conservative packet-frustum pass in
+   torch, one interval slab test per block, replaces the per-ray pass; its
+   lists are supersets and K4's per-ray re-check makes the extras inert.
 2. K4 (csrc/bvh_winner_kernel.cu): per block, walk its list front to back
    up to the block's static horizon (the largest live ray's ceiling: its
    `tcap` capped by its padded root-box exit); for each leaf re-check the
@@ -49,8 +51,8 @@ from raytracingthenextweekcuda_tpu_torch.utils.timing import span
 BLOCK = 128
 # Above this many leaves the packet-frustum work-list pass takes over.
 FRUSTUM_LEAF_THRESHOLD = 2048
-# Rays per chunk of the exact work-list pass: bounds its (rays, leaves)
-# temporaries.
+# Rays per chunk of the exact pass's plain version: bounds its (rays,
+# leaves) temporaries.
 _WL_CHUNK_RAYS = 1 << 20
 # Blocks per chunk of the plain winner: bounds its (rays, tile) temporaries.
 _WINNER_CHUNK_BLOCKS = 32
@@ -64,6 +66,11 @@ _EXIT_ABS = 1e-4
 # production instantiation, and the one that also writes the stats.
 KERNEL_LAUNCHES = 0
 STATS_LAUNCHES = 0
+# Launches of the work-list kernel, counted by `build_worklist`'s exact pass.
+WORKLIST_LAUNCHES = 0
+# The most leaves the work-list kernel takes: the sort keys of the next
+# power of two in the card's 227 KB of shared memory a block.
+WORKLIST_MAX_LEAVES = 16384
 
 
 def use_frustum_worklist(n_leaves: int) -> bool:
@@ -151,16 +158,32 @@ def build_worklist(origin: torch.Tensor, direction: torch.Tensor,
     origin, direction (N, 3) with N a multiple of BLOCK; alive (N,) bool;
     leaf_bounds (6, L); tcap (N,) each ray's analytic ceiling (BIG when
     None). `frustum` selects the packet-frustum pass (see the module
-    docstring; callers resolve it with use_frustum_worklist).
+    docstring; callers resolve it with use_frustum_worklist). The exact
+    pass launches the work-list kernel on CUDA tensors (or raises) and runs
+    `worklist_reference` on CPU tensors.
     """
     n = origin.shape[0]
     if n % BLOCK:
         raise ValueError(f"{n} rays is not a multiple of {BLOCK}")
+    dev = origin.device
     if tcap is None:
-        tcap = torch.full((n,), BIG, dtype=torch.float32, device=origin.device)
+        tcap = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     if frustum:
         return _build_worklist_frustum(origin, direction, alive, leaf_bounds,
                                        tmin, tcap)
+    if dev.type == "cuda":
+        return _launch_worklist(origin, direction, alive, tcap, leaf_bounds, tmin)
+    if dev.type == "cpu":
+        return worklist_reference(origin, direction, alive, tcap, leaf_bounds, tmin)
+    raise ValueError(f"unsupported device {dev}")
+
+
+def worklist_reference(origin, direction, alive, tcap, leaf_bounds,
+                       tmin: float) -> WorkList:
+    """Plain version of the work-list kernel: the exact pass in torch, over
+    chunks of _WL_CHUNK_RAYS rays, each (rays, leaves) slab test and hit
+    mask a tensor, then the block reductions and a stable sort."""
+    n = origin.shape[0]
     L = leaf_bounds.shape[1]
     lo, hi = leaf_bounds[0:3], leaf_bounds[3:6]
     hits, entries = [], []
@@ -223,6 +246,49 @@ def _build_worklist_frustum(origin, direction, alive, leaf_bounds, tmin,
     hitb = ((tf_hi >= tn_lo) & (tf_hi >= tmin) & av.any(dim=1)[:, None]
             & (tn_lo <= tc_blk[:, None]))
     return _sorted_lists(hitb, tn_lo)
+
+
+def _launch_worklist(origin, direction, alive, tcap, leaf_bounds,
+                     tmin: float) -> WorkList:
+    global WORKLIST_LAUNCHES
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
+
+    dev = origin.device
+    n = origin.shape[0]
+    L = leaf_bounds.shape[1]
+    for t, dtype, shape in ((origin, torch.float32, (n, 3)),
+                            (direction, torch.float32, (n, 3)),
+                            (alive, torch.bool, (n,)),
+                            (tcap, torch.float32, (n,)),
+                            (leaf_bounds, torch.float32, (6, L))):
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"worklist input {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}: expected contiguous {shape} {dtype} "
+                             f"on {dev}")
+    if n % BLOCK:
+        raise ValueError(f"worklist input: {n} rays is not a multiple of {BLOCK}")
+    if not 1 <= L <= WORKLIST_MAX_LEAVES:
+        raise ValueError(f"worklist input: {L} leaves, the kernel takes 1 to "
+                         f"{WORKLIST_MAX_LEAVES}")
+    lib = build.load()
+    B = n // BLOCK
+    counts = torch.empty((B,), dtype=torch.int32, device=dev)
+    order = torch.empty((B, L), dtype=torch.int32, device=dev)
+    entry = torch.empty((B, L), dtype=torch.float32, device=dev)
+    if B == 0:
+        return WorkList(counts, order, entry)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rtnw_worklist(
+            origin.data_ptr(), direction.data_ptr(), alive.data_ptr(),
+            tcap.data_ptr(), int(B), leaf_bounds.data_ptr(), int(L), float(tmin),
+            counts.data_ptr(), order.data_ptr(), entry.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"work-list launch failed: "
+                           f"{lib.rtnw_error_string(err).decode()} ({err})")
+    WORKLIST_LAUNCHES += 1
+    return WorkList(counts, order, entry)
 
 
 def intersect_packed_bvh(rays, scene: LeafScene, tmin: float = EPSILON,
@@ -458,7 +524,7 @@ def winner_reference(origin, direction, alive, tcap, wl: WorkList,
 
 
 __all__ = ["BLOCK", "FRUSTUM_LEAF_THRESHOLD", "KERNEL_LAUNCHES", "LeafScene",
-           "STATS_LAUNCHES",
+           "STATS_LAUNCHES", "WORKLIST_LAUNCHES", "WORKLIST_MAX_LEAVES",
            "WorkList", "build_worklist", "intersect_packed_bvh", "leaf_scene",
            "real_columns", "use_frustum_worklist", "winner",
-           "winner_inputs", "winner_reference"]
+           "winner_inputs", "winner_reference", "worklist_reference"]

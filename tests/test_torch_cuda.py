@@ -6,7 +6,8 @@ leaves; K2 bit for bit on its persistent grid below and above one
 resident grid, K0 from below a warp to above a resident grid; K3 and K4
 bit for bit, K4 also for every count of rays that need a leaf, on ties
 and on skipped prefetches, and K4's stats counters equal to the plain
-version's), renders (and one backward of the differentiable wavefront and
+version's; the work-list kernel's lists equal to its plain torch loop's),
+renders (and one backward of the differentiable wavefront and
 of the LBVH regime, and a scene file through `render --scene`) on the card
 against the same on the CPU, tile-sharded passes on the card against
 render_pass there, and the benchmark line (`run_bench(mesh=True)`: its
@@ -118,7 +119,9 @@ def test_k3_k4_match_plain_on_card(cuda_device, bounces, mesh_scene):
                                            rays.time, alive, ds.analytic, EPSILON)
     assert torch.equal(code, code_p) and torch.equal(t, t_p)
     alive_mesh, t_cap = mesh_query(ds.leaves, rays, EPSILON, alive, t, code)
+    before_wl = k4.WORKLIST_LAUNCHES
     args = k4.winner_inputs(rays, ds.leaves, EPSILON, alive_mesh, t_cap)
+    assert k4.WORKLIST_LAUNCHES == before_wl + 1
     t4, c4 = k4.winner(*args, ds.leaves, EPSILON)
     t4p, c4p = k4.winner_reference(*args, ds.leaves, EPSILON)
     assert torch.equal(c4, c4p) and torch.equal(t4, t4p)
@@ -470,6 +473,84 @@ def test_k4_stats_match_plain_on_card(cuda_device):
     assert st.dtype == torch.int32 and st.shape == (args[4].counts.shape[0], 2)
     assert torch.equal(st.cpu(), st_p.cpu())
     assert (st[:, 1] < st[:, 0]).any()
+
+
+def _leaf_boxes(n_leaves, n_rays, seed, device, twins=False):
+    """build_worklist's exact-pass inputs on `device`: `n_leaves` random
+    boxes in [-1, 1]^3 (leaves 0 and 1 the same box with `twins`) and
+    `n_rays` rays aimed into them, a fifth dead, two blocks wholly dead,
+    some direction components exactly +-0, one live ray with a NaN origin
+    coordinate, random ceilings: (origin, direction, alive, tcap,
+    leaf_bounds)."""
+    g = np.random.default_rng(seed)
+    c = g.uniform(-1, 1, (n_leaves, 3))
+    h = g.uniform(0.02, 0.3, (n_leaves, 3))
+    lb = np.concatenate([c - h, c + h], axis=1).T.astype(np.float32)
+    if twins:
+        lb[:, 1] = lb[:, 0]
+    o = g.uniform(-3, 3, (n_rays, 3))
+    d = g.uniform(-1, 1, (n_rays, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[::7, 0] = 0.0
+    d[3::11, 1] = -0.0
+    alive = g.random(n_rays) > 0.2
+    alive[128:384] = False
+    o[5, 2], alive[5] = np.nan, True
+    tcap = g.uniform(1.0, 6.0, n_rays)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in (
+        o.astype(np.float32), d.astype(np.float32), alive, tcap.astype(np.float32),
+        lb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "primary", "primary_tcap", "bounce1", "bounce1_tcap", "leaves_1", "leaves_84",
+    "leaves_340", "leaves_2048", "twin_leaves"])
+def test_worklist_kernel_matches_plain_on_card(case, cuda_device, mesh_scene):
+    """The exact work-list pass, one launch of its kernel a build, against
+    its plain torch loop on the same CUDA inputs: counts and order bit for
+    bit, entry equal in value. The mesh stand-in's primary and bounce-1
+    wavefronts (with and without the analytic ceilings), and random leaf
+    boxes at 1, 84 (the benchmark's mesh), 340 (mesh_large) and 2048 leaves
+    (the most the exact pass takes) with dead rays and dead blocks; two
+    leaves with the same box, whose tied entries keep leaf order."""
+    from raytracingthenextweekcuda_tpu_torch.config import EPSILON
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
+    from raytracingthenextweekcuda_tpu_torch.ops.fused import mesh_query
+
+    wavefront = case.startswith(("primary", "bounce1"))
+    if wavefront:
+        ds, rays, alive = _mesh_wavefront(*mesh_scene, cuda_device,
+                                          0 if case.startswith("primary") else 1)
+        t, code = k3.intersect_packed(rays, ds.analytic, EPSILON, alive=alive)
+        alive_mesh, t_cap = mesh_query(ds.leaves, rays, EPSILON, alive, t, code)
+        o, d, a, tcap, _ = k4.winner_inputs(rays, ds.leaves, EPSILON, alive_mesh,
+                                            t_cap)
+        lb = ds.leaves.leaf_bounds
+    else:
+        n_leaves = 2 if case == "twin_leaves" else int(case.split("_")[1])
+        o, d, a, tcap, lb = _leaf_boxes(n_leaves, 128 * 32, n_leaves, cuda_device,
+                                        twins=case == "twin_leaves")
+    cap = None if wavefront and not case.endswith("tcap") else tcap
+    before = k4.WORKLIST_LAUNCHES
+    wl = k4.build_worklist(o, d, a, lb, EPSILON, tcap=cap)
+    assert k4.WORKLIST_LAUNCHES == before + 1
+    plain = k4.worklist_reference(o, d, a, tcap if cap is not None else
+                                  torch.full_like(tcap, k3.BIG), lb, EPSILON)
+    assert wl.order.shape == plain.order.shape == (o.shape[0] // 128, lb.shape[1])
+    assert torch.equal(wl.counts, plain.counts)
+    assert torch.equal(wl.order, plain.order)
+    assert torch.equal(wl.entry, plain.entry)
+    assert int(wl.counts.sum()) > 0
+    if not wavefront:
+        assert int(wl.counts[1:3].sum()) == 0  # the dead blocks list nothing
+    if case == "twin_leaves":
+        both = (wl.counts == 2).nonzero().flatten()
+        assert both.numel() > 0
+        assert torch.equal(wl.order[both], torch.tensor(
+            [[0, 1]], dtype=torch.int32, device=cuda_device).expand(both.numel(), 2))
+        assert torch.equal(wl.entry[both, 0], wl.entry[both, 1])
 
 
 @pytest.mark.cuda

@@ -1,8 +1,8 @@
 """The plain versions of K3 (analytic closest hit) and K4 (tile-BVH
 winner), and the work-list build, against the JAX reference on the CPU
 (its Pallas kernels in interpret mode), plus the wrappers' device rules.
-K3 and K4 themselves are held to these plain versions on a card
-(test_torch_cuda.py, chip_smoke.py).
+K3, K4 and the work-list kernel themselves are held to these plain
+versions on a card (test_torch_cuda.py, chip_smoke.py).
 
 Tolerances. Codes must be equal and t within 1e-5 relative on live rays,
 except on at most 0.1% of them: XLA's CPU code contracts a*b + c into
@@ -206,6 +206,25 @@ def test_worklist_matches_reference(mesh_wavefronts, front, frustum, with_tcap):
     for b, c in enumerate(counts):
         assert set(order[b, :c]) == set(out.order[b, :c].tolist())
     np.testing.assert_array_equal(entry, out.entry.numpy())
+
+
+def test_worklist_on_cpu_runs_the_plain_version(mesh_wavefronts):
+    """CPU tensors take the exact pass's plain version: no kernel launch,
+    the same lists as worklist_reference."""
+    _, _, ds, fronts = mesh_wavefronts
+    _, o, d, _, alive, tcap = fronts[0]
+    pad = -o.shape[0] % 128
+    o, d = (torch.from_numpy(np.concatenate([x, np.zeros((pad, 3), np.float32)]))
+            for x in (o, d))
+    alive = torch.from_numpy(np.concatenate([alive, np.zeros(pad, bool)]))
+    tcap = torch.from_numpy(np.concatenate([tcap, np.full(pad, k3.BIG, np.float32)]))
+    before = k4.WORKLIST_LAUNCHES
+    out = k4.build_worklist(o, d, alive, ds.leaves.leaf_bounds, EPSILON, tcap=tcap)
+    assert k4.WORKLIST_LAUNCHES == before
+    ref = k4.worklist_reference(o, d, alive, tcap, ds.leaves.leaf_bounds, EPSILON)
+    for got, want in zip(out, ref):
+        assert torch.equal(got, want)
+    assert int(out.counts.sum()) > 0
 
 
 def test_frustum_threshold():
@@ -458,6 +477,20 @@ def test_launches_check_their_inputs():
             k4._launch(*args, bad_leaves, EPSILON)
     with pytest.raises(ValueError, match="leaf buffer"):
         k4._launch(*args, leaves._replace(max_count=leaves.tile + 1), EPSILON)
+    wl_args = (*args[:4], leaves.leaf_bounds)
+    for k, bad_arg in ((0, args[0].double()),                   # dtype
+                       (2, args[2].to(torch.uint8)),            # dtype
+                       (3, args[3][:-1]),                       # shape
+                       (4, leaves.leaf_bounds[:5]),             # shape
+                       (4, leaves.leaf_bounds.to("meta")),      # device
+                       (1, args[1].t().contiguous().t())):      # not contiguous
+        bad = list(wl_args)
+        bad[k] = bad_arg
+        with pytest.raises(ValueError, match="worklist input"):
+            k4._launch_worklist(*bad, EPSILON)
+    with pytest.raises(ValueError, match="worklist input"):
+        k4._launch_worklist(*(t[:-1] for t in wl_args[:4]), leaves.leaf_bounds,
+                            EPSILON)                            # not a block
 
 
 def test_launch_without_nvcc_raises(tmp_path, monkeypatch):
@@ -482,4 +515,8 @@ def test_launch_without_nvcc_raises(tmp_path, monkeypatch):
     args = k4.winner_inputs(rays, leaves, EPSILON, torch.from_numpy(alive))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         k4._launch(*args, leaves, EPSILON)
+    before_wl = k4.WORKLIST_LAUNCHES
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        k4._launch_worklist(*args[:4], leaves.leaf_bounds, EPSILON)
     assert (k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES) == (before3, before4)
+    assert k4.WORKLIST_LAUNCHES == before_wl
