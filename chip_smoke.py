@@ -131,6 +131,14 @@ Phases, each printing one line or more:
      leaves); on each, the kernel's time (CUDA events) beside its bound
      and the plain loop's time (CUDA events), with its registers and
      spills (ptxas) and its CTAs a SM.
+ 23. K1 on the RTiOW final scene (`benchmark/configs/rtiow_final`: 488
+     spheres, 385 of them moving, a thin lens of aperture 0.1) at its
+     benchmark job, 1200x800, 10 spp, 50 bounces, one pass: K1 against
+     its plain version on a seeded 8,192-pixel sample of the film, bit for
+     bit; K1's time over the whole film (CUDA events) beside its bound
+     (the plain version's bounces on the sample, scaled to the film), its
+     registers and spills, its CTAs a SM and the scene bytes each CTA
+     stages in shared memory.
 
 Every kernel's time stands beside its CTAs resident on one SM (its
 occupancy query at the launch's shared memory) and the waves its grid
@@ -805,6 +813,54 @@ def _phase22(dev, card, wl_regs) -> dict:
             if out is None:
                 out = {"ms": ms, "plain_ms": plain_ms, "bound": bound, "res": res}
     return out
+
+
+# The most bytes of packed scene rows K1 stages in shared memory a CTA
+# (csrc/render_kernel.cu, kSmemLimit); larger scenes are read from global
+# memory.
+K1_SMEM_LIMIT = 48 * 1024
+
+
+def _phase23(dev, card, k1_regs) -> None:
+    """K1 on the RTiOW final scene at its benchmark job: against its plain
+    version on a seeded sample of the film, bit for bit, then its time over
+    the whole film beside its bound, registers, residency and staged
+    scene bytes."""
+    from benchmark import program, scenedata
+    from raytracingthenextweekcuda_tpu_torch.config import RenderConfig
+    from raytracingthenextweekcuda_tpu_torch.models import camera as cam
+    from raytracingthenextweekcuda_tpu_torch.models.scene import finalize
+    from raytracingthenextweekcuda_tpu_torch.ops import threefry
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bounce_kernel as bk
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import work
+
+    scene, camera = program.build_scene(scenedata.load_config("rtiow_final"))
+    scene = finalize(scene)
+    cfg = RenderConfig(width=1200, height=800, spp=10, bounces=50, spp_per_pass=10)
+    frame = cam.derive(camera, cfg.aspect_ratio)
+    words = threefry.split(threefry.fold_in(threefry.key(cfg.seed), 0), cfg.spp)
+    inp = bk.render_inputs(scene.packed, frame, words, cfg, device=dev)
+    if inp.trih is not None or inp.counts != (488, 0, 0, 0, 0):
+        raise AssertionError(f"RTiOW final: K1's inputs hold {inp.counts}, not 488 "
+                             f"spheres alone")
+    n = inp.pid.numel()
+    pixels = np.sort(np.random.default_rng(23).choice(n, 8192, replace=False))
+    sub = bk.render_inputs(scene.packed, frame, words, cfg, pixel_ids=pixels,
+                           device=dev)
+    work.reset()
+    _check_same("K1 RTiOW final", bk.render_kernel(sub), bk.render_reference(sub))
+    mean_bounces = work.WORK["bounces"] / (pixels.size * cfg.spp)
+    bound = _render_bound(inp, work.WORK, n / pixels.size)
+    ms = _event_ms(lambda: bk.render_kernel(inp), reps=3)
+    res = _residency("rtnw_render_occupancy", (0, 0, *inp.counts), n)
+    rows = inp.scene.numel() * inp.scene.element_size()
+    staged = rows if rows <= K1_SMEM_LIMIT else 0
+    print(f"[23 K1 RTiOW final] 1200x800, 10 spp, 50 bounces, 488 spheres (385 "
+          f"moving), aperture 0.1 | K1 vs plain on 8192 pixels: bit for bit | mean "
+          f"bounces a path {mean_bounces:.4f} | K1 {ms:.3f} ms (CUDA events, mean "
+          f"of 3; {_res(res)}; {k1_regs[0]} registers, {k1_regs[1]} bytes of "
+          f"spills; {staged} B of scene rows staged a CTA) vs bound {bound[0]:.3f} "
+          f"ms ({bound[1]}) | {card}", flush=True)
 
 
 def main() -> None:
@@ -1770,6 +1826,7 @@ def main() -> None:
     _phase20(dev)
     _phase21(dev, card)
     wl = _phase22(dev, card, wl_regs)
+    _phase23(dev, card, regs_spills["render_kernel<false>"])
     src = "raytracingthenextweekcuda_tpu_torch/csrc/"
     ref = "raytracingthenextweekcuda_tpu/ops/pallas/"
     walk = f"{ref}bounce_kernel.py:820"  # the consensus walk in _bounce_core

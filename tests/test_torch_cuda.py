@@ -6,9 +6,10 @@ leaves; K2 bit for bit on its persistent grid below and above one
 resident grid, K0 from below a warp to above a resident grid; K3 and K4
 bit for bit, K4 also for every count of rays that need a leaf, on ties
 and on skipped prefetches, and K4's stats counters equal to the plain
-version's; the work-list kernel's lists equal to its plain torch loop's),
-renders (and one backward of the differentiable wavefront and
-of the LBVH regime, and a scene file through `render --scene`) on the card
+version's; the work-list kernel's lists equal to its plain torch loop's;
+K1 bit for bit on the 488 spheres of the RTiOW final scene), renders (and
+one backward of the differentiable wavefront and of the LBVH regime, and a
+scene file through `render --scene`) on the card
 against the same on the CPU, tile-sharded passes on the card against
 render_pass there, and the benchmark line (`run_bench(mesh=True)`: its
 FP32 share in (0, 1.05] and the three mesh metrics). These tests skip
@@ -571,6 +572,28 @@ def test_k1_uneven_paths_match_plain_on_card(use_bvh, cuda_device):
     before = bk.KERNEL_BVH_LAUNCHES
     k1 = bk.render_kernel(inp).cpu().numpy()
     assert bk.KERNEL_BVH_LAUNCHES == before + use_bvh
+    np.testing.assert_array_equal(k1, bk.render_reference(inp).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_k1_matches_plain_on_rtiow_final(cuda_device):
+    """K1 against its plain version on a band of the RTiOW final scene at its
+    published 1200x800 and 50 bounces: all 488 spheres staged in shared
+    memory (35,136 B), 385 of them moving over the shutter, the thin lens
+    of aperture 0.1; the band's primaries hit moving spheres. Equal bit for
+    bit."""
+    scene, camera = tpresets.rtiow_final(seed=0)
+    scene = finalize(scene)
+    cfg = RenderConfig(width=1200, height=800, spp=4, bounces=50, spp_per_pass=4)
+    band = np.arange(384 * 1200, 416 * 1200)
+    inp = bk.render_inputs(scene.packed, tcam.derive(camera, cfg.aspect_ratio),
+                           threefry.split(threefry.key(11), 4), cfg,
+                           pixel_ids=band, device=cuda_device)
+    assert inp.trih is None and inp.counts == (488, 0, 0, 0, 0)
+    assert int((scene.spheres.center1 != scene.spheres.center0).any(axis=1).sum()) == 385
+    before = bk.KERNEL_LAUNCHES
+    k1 = bk.render_kernel(inp).cpu().numpy()
+    assert bk.KERNEL_LAUNCHES == before + 1
     np.testing.assert_array_equal(k1, bk.render_reference(inp).cpu().numpy())
 
 
