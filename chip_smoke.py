@@ -138,7 +138,15 @@ Phases, each printing one line or more:
      bit; K1's time over the whole film (CUDA events) beside its bound
      (the plain version's bounces on the sample, scaled to the film), its
      registers and spills, its CTAs a SM and the scene bytes each CTA
-     stages in shared memory.
+     stages in shared memory;
+ 24. the shade kernel (csrc/shade_kernel.cu): the sorted wavefront's
+     bounce after K4 (the winners' merge, the hit recompute, the material
+     row, the pcg4d draws, the BSDF and the bookkeeping) against its plain
+     torch version on the benchmark mesh's primary wavefront (512x512, 16
+     samples, 4.19 M rays), bit for bit; its time (CUDA events) beside the
+     plain version's and its bytes bound, its registers and spills and its
+     CTAs a SM. Phase 2 holds its registers and spills at SHADE_REGS and
+     SHADE_SPILL, and phase 8 checks one shade launch a K3 launch.
 
 Every kernel's time stands beside its CTAs resident on one SM (its
 occupancy query at the launch's shared memory) and the waves its grid
@@ -296,6 +304,9 @@ K1_REGS = 72
 K1_SPILL = 4
 K4_REGS = 64
 K4_SPILL = 0
+# ptxas's registers and spill bytes of the shade kernel.
+SHADE_REGS = 64
+SHADE_SPILL = 0
 
 # The bounds: the least time the card could take for a kernel's work, the
 # larger of its bytes (each input read once, each output written once) over
@@ -863,6 +874,72 @@ def _phase23(dev, card, k1_regs) -> None:
           f"ms ({bound[1]}) | {card}", flush=True)
 
 
+def _shade_bound(n: int, tables: int) -> tuple:
+    """The shade kernel's bound on a wavefront of `n` live rays: each ray's
+    state, both winners and its slot read once (77 bytes) and its new state
+    written once (49), the scene's and the materials' rows once; the
+    shading of each ray (SHADE_OPS, SHADE_F64_OPS)."""
+    return _bound(n * (77 + 49) + tables, n * SHADE_OPS, n * SHADE_F64_OPS)
+
+
+def _phase24(dev, card, shade_regs) -> dict:
+    """The shade kernel against its plain version on the benchmark mesh's
+    primary wavefront, bit for bit, with its time beside the plain
+    version's, its bound, registers and residency. Returns its entry of
+    the kernels line."""
+    from benchmark import program, scenedata
+    from raytracingthenextweekcuda_tpu_torch.config import EPSILON, RenderConfig
+    from raytracingthenextweekcuda_tpu_torch.models import camera as cam
+    from raytracingthenextweekcuda_tpu_torch.models.scene import finalize
+    from raytracingthenextweekcuda_tpu_torch.ops import rng, threefry
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import shade_kernel as sk
+    from raytracingthenextweekcuda_tpu_torch.ops.fused import device_scene, winners
+    from raytracingthenextweekcuda_tpu_torch.ops.materials import material_table
+
+    scene, camera = program.build_scene(scenedata.load_config("mesh_stress"))
+    scene = finalize(scene)
+    cfg = RenderConfig(width=512, height=512, spp=32, bounces=10, spp_per_pass=16)
+    words = threefry.split(threefry.fold_in(threefry.key(cfg.seed), 0), 16)
+    rays, _ = cam.generate_rays_multi(cam.derive(camera, cfg.aspect_ratio), words,
+                                      cfg.width, cfg.height, dev)
+    tb0, tb1 = rng.key_bases(words, dev)
+    ctx = rng.SlotCtx(None, tb0, tb1, cfg.num_pixels, cfg.num_pixels)
+    ds = device_scene(scene, dev)
+    mats = material_table(scene.materials, dev)
+    n = rays.count
+    state = (rays, torch.ones((n, 3), device=dev), torch.zeros((n, 3), device=dev),
+             torch.ones((n,), dtype=torch.bool, device=dev))
+    slot = torch.arange(n, device=dev)
+    win = winners(ds, rays, EPSILON, alive=state[3])
+    args = (ds, mats, scene.packed.used_kinds, cfg, state, win, ctx, slot, 0)
+    before = sk.SHADE_LAUNCHES
+    out = sk.shade(*args)
+    if sk.SHADE_LAUNCHES != before + 1:
+        raise AssertionError("shade did not launch the shade kernel once")
+    plain = sk.shade_reference(*args)
+    for name, k, p in (("origin", out[0].origin, plain[0].origin),
+                       ("direction", out[0].direction, plain[0].direction),
+                       ("throughput", out[1], plain[1]), ("radiance", out[2], plain[2]),
+                       ("alive", out[3], plain[3])):
+        _check_same(f"shade kernel {name}", k, p)
+        if k.is_floating_point() and not torch.equal(k.view(torch.int32),
+                                                     p.view(torch.int32)):
+            raise AssertionError(f"shade kernel {name}: the sign of a zero differs")
+    ms = _event_ms(lambda: sk.shade(*args), reps=20)
+    plain_ms = _event_ms(lambda: sk.shade_reference(*args), reps=3)
+    tables = sum(t.numel() * t.element_size() for t in (*ds[2:], *mats))
+    bound = _shade_bound(n, tables)
+    res = _residency("rtnw_shade_occupancy", (), n)
+    print(f"[24 shade kernel] benchmark mesh primary wavefront: {n} rays, "
+          f"{int(out[3].sum())} live after the bounce | bit for bit against the "
+          f"plain version (rays, throughput, radiance, alive) | kernel {ms:.4f} ms "
+          f"(CUDA events, mean of 20; {_res(res)}; {shade_regs[0]} registers, "
+          f"{shade_regs[1]} bytes of spills) vs bound {bound[0]:.4f} ms ({bound[1]}) "
+          f"| plain version {plain_ms:.3f} ms (CUDA events, mean of 3) | {card}",
+          flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound": bound, "res": res}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -884,6 +961,7 @@ def main() -> None:
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import shade_kernel as sk
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import work
     from raytracingthenextweekcuda_tpu_torch.ops.fused import mesh_query
     from raytracingthenextweekcuda_tpu_torch.ops.rays import Rays
@@ -943,6 +1021,17 @@ def main() -> None:
     if regs > K4_REGS or spill > K4_SPILL:
         raise AssertionError(f"K4's production instantiation: {regs} registers and "
                              f"{spill} spill bytes, above {K4_REGS} and {K4_SPILL}")
+    shade_line = ptxas_lines.get("shade_kernel", "")
+    regs = re.search(r"Used (\d+) registers", shade_line)
+    spill = re.search(r"(\d+) bytes spill stores", shade_line)
+    if not (regs and spill):
+        raise AssertionError("no ptxas registers and spills for shade_kernel")
+    shade_regs = (int(regs.group(1)), int(spill.group(1)))
+    print(f"[2 build] shade kernel registers, spill bytes: {shade_regs}", flush=True)
+    if shade_regs[0] > SHADE_REGS or shade_regs[1] > SHADE_SPILL:
+        raise AssertionError(f"the shade kernel: {shade_regs[0]} registers and "
+                             f"{shade_regs[1]} spill bytes, above {SHADE_REGS} and "
+                             f"{SHADE_SPILL}")
 
     # 3. K1 vs plain on the card
     cases = [
@@ -1106,19 +1195,23 @@ def main() -> None:
     # 8. mesh main path
     k3.KERNEL_LAUNCHES = 0
     k4.KERNEL_LAUNCHES = k4.WORKLIST_LAUNCHES = 0
+    sk.SHADE_LAUNCHES = 0
     mesh_result = run_mesh_bench(device=dev, keep_film=True)
     k3_launches, k4_launches = k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES
     wl_launches = k4.WORKLIST_LAUNCHES
+    shade_launches = sk.SHADE_LAUNCHES
     film = mesh_result.pop("film")
-    if k3_launches <= 0 or k4_launches <= 0 or wl_launches != k4_launches:
+    if (k3_launches <= 0 or k4_launches <= 0 or wl_launches != k4_launches
+            or shade_launches != k3_launches):
         raise AssertionError(f"the mesh render launched K3 {k3_launches}, K4 "
-                             f"{k4_launches} and the work-list kernel "
-                             f"{wl_launches} times")
+                             f"{k4_launches}, the work-list kernel "
+                             f"{wl_launches} and the shade kernel "
+                             f"{shade_launches} times")
     sorted_mesh = film.mean.cpu().numpy()
     centre, floor = _check_mesh_image("mesh image", film)
     print(f"[8 mesh main path] {json.dumps(mesh_result)} | K3 launches "
           f"{k3_launches} K4 launches {k4_launches} work-list launches "
-          f"{wl_launches} | centre (sphere) rgb "
+          f"{wl_launches} shade launches {shade_launches} | centre (sphere) rgb "
           f"{centre.round(2).tolist()} floor rgb {floor.round(1).tolist()}",
           flush=True)
     # K4's summed device time over the launches of one mesh render.
@@ -1827,6 +1920,7 @@ def main() -> None:
     _phase21(dev, card)
     wl = _phase22(dev, card, wl_regs)
     _phase23(dev, card, regs_spills["render_kernel<false>"])
+    shade = _phase24(dev, card, shade_regs)
     src = "raytracingthenextweekcuda_tpu_torch/csrc/"
     ref = "raytracingthenextweekcuda_tpu/ops/pallas/"
     walk = f"{ref}bounce_kernel.py:820"  # the consensus walk in _bounce_core
@@ -1865,6 +1959,10 @@ def main() -> None:
         entry("work-list worklist_kernel", "worklist_kernel.cu",
               f"none (XLA ops: {ref}bvh_winner_kernel.py:96)", wl_launches, 0.0,
               wl["ms"], wl["plain_ms"], wl["bound"], wl["res"]),
+        entry("shade shade_kernel", "shade_kernel.cu",
+              "none (XLA ops: raytracingthenextweekcuda_tpu/models/integrator.py:360)",
+              shade_launches, 0.0, shade["ms"], shade["plain_ms"], shade["bound"],
+              shade["res"]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,12 +4,16 @@ raytracingthenextweekcuda_tpu/models/integrator.py).
 `trace` routes a wavefront of one sample as the reference routes it:
 
 - Tile-BVH scenes (meshes above 256 triangles, models/scene.finalize)
-  trace through the sorted wavefront (`_trace_sorted`): each bounce is
-  `_bounce_body` in torch around the kernels K3 (analytic closest hit) and
-  K4 (tile-BVH winner). From the second bounce on, the wavefront is first
-  sorted by a coherence key (ops/wavefront_sort.py) every `sort_stride`
-  bounces, and the rays that died sort to the tail and leave the
-  wavefront; at the end the radiance goes back to ray order.
+  trace through the sorted wavefront (`_trace_sorted`): each bounce runs
+  the kernels K3 (analytic closest hit) and K4 (tile-BVH winner), then
+  one launch of the shade kernel (ops/cuda/shade_kernel.py: the merge,
+  the recompute, the BSDF and the bookkeeping) on a CUDA state whose
+  tables need no gradient, else its plain version, the torch body that
+  `_bounce_body` runs after its closest hit. From the second bounce on,
+  the wavefront is first sorted by a coherence key
+  (ops/wavefront_sort.py) every `sort_stride` bounces, and the rays that
+  died sort to the tail and leave the wavefront; at the end the radiance
+  goes back to ray order.
   `sort_rays=False` keeps the same engine on the unsorted wavefront.
 - Other finalized scenes with `cfg.fused_bounce` trace in one launch of
   the path kernel K2 (ops/cuda/bounce_kernel.path_trace), forward only.
@@ -43,7 +47,8 @@ pass, `split(pass_key, samples)` per sample, as host threefry words
 The layers of a render lie in spans (utils/timing.span) that a running
 torch.profiler records: `integrator.render` an image, `integrator.prep` a
 pass, and on the sorted wavefront `wavefront.prep`, `wavefront.sort`,
-`wavefront.bounce` and `wavefront.unsort`; `host.read` marks each read of
+`wavefront.bounce` (with `wavefront.shade` around the shade kernel's
+launch) and `wavefront.unsort`; `host.read` marks each read of
 a device value. Without a profiler they cost one check each.
 """
 
@@ -68,6 +73,7 @@ from raytracingthenextweekcuda_tpu_torch.ops import (
     traverse,
 )
 from raytracingthenextweekcuda_tpu_torch.ops.bvh import BVH
+from raytracingthenextweekcuda_tpu_torch.ops.cuda import shade_kernel
 from raytracingthenextweekcuda_tpu_torch.ops.cuda.bounce_kernel import (
     device_or_raise,
     grad_probe,
@@ -78,6 +84,7 @@ from raytracingthenextweekcuda_tpu_torch.ops.fused import (
     DeviceScene,
     device_scene,
     intersect_scene_fused,
+    winners,
 )
 from raytracingthenextweekcuda_tpu_torch.ops.geometry import Triangles
 from raytracingthenextweekcuda_tpu_torch.ops.intersect import leaf
@@ -207,8 +214,16 @@ def _bounce_body(ds, mats: MaterialRows, used_kinds,
     bool); returns the advanced state. Every operation is row-independent,
     so any order of the rays gives the same rows.
     """
+    hit = _closest_hit(ds, state[0], cfg.tmin, alive=state[3])
+    return _shade(mats, used_kinds, cfg, state, hit, ctx, bounce_idx)
+
+
+def _shade(mats: MaterialRows, used_kinds, cfg: RenderConfig, state, hit: Hit,
+           ctx: rng.RayCtx, bounce_idx: int):
+    """The bounce after the closest hit `hit`: gather, scatter,
+    bookkeeping. The shade kernel's plain version ends with it
+    (ops/cuda/shade_kernel.py)."""
     rays, throughput, radiance, alive = state
-    hit = _closest_hit(ds, rays, cfg.tmin, alive=alive)
     mat = gather(mats, hit.material_id)
     u4 = rng.bounce_uniforms(ctx.pixel_id, ctx.base0, ctx.base1, bounce_idx)
     scat = scatter(u4, rays, hit, mat, used_kinds)
@@ -244,11 +259,41 @@ def _bounce_body(ds, mats: MaterialRows, used_kinds,
     return new_rays, new_tp, radiance, cont
 
 
+def _kernel_shades(ds: DeviceScene, mats: MaterialRows, state) -> bool:
+    """Whether the shade kernel takes a sorted bounce: on a CUDA state
+    whose graph nothing asks for. Where grad mode is on and a recompute
+    table, a material row or the state requires grad, the torch body runs
+    and carries the gradient (apps/fit.run_fit_mesh trains through it)."""
+    rays, throughput, radiance, _ = state
+    if rays.origin.device.type != "cuda":
+        return False
+    return not (torch.is_grad_enabled() and any(
+        t.requires_grad for t in (ds.spheres, ds.planes, ds.triangles,
+                                  mats.albedo, mats.param, mats.emission,
+                                  rays.origin, rays.direction, rays.time,
+                                  throughput, radiance)))
+
+
+def _sorted_bounce(ds: DeviceScene, mats: MaterialRows, used_kinds,
+                   cfg: RenderConfig, state, ctx: rng.SlotCtx, slot,
+                   bounce_idx: int):
+    """One bounce of the sorted wavefront: K3 and K4 find the winners, then
+    one launch of the shade kernel does the rest where `_kernel_shades`,
+    else its plain version, the torch body."""
+    win = winners(ds, state[0], cfg.tmin, alive=state[3])
+    if _kernel_shades(ds, mats, state):
+        with span("wavefront.shade"):
+            return shade_kernel.shade(ds, mats, used_kinds, cfg, state, win, ctx,
+                                      slot, bounce_idx)
+    return shade_kernel.shade_reference(ds, mats, used_kinds, cfg, state, win, ctx,
+                                        slot, bounce_idx)
+
+
 def _trace_sorted(scene: Scene, ds: DeviceScene, mats: MaterialRows,
-                  rays: Rays, cfg: RenderConfig, ctx_of) -> torch.Tensor:
+                  rays: Rays, cfg: RenderConfig, ctx: rng.SlotCtx) -> torch.Tensor:
     """Trace a wavefront on a tile-BVH scene to the end; returns its
-    radiance (N, 3) in wavefront order. `ctx_of(slot)` is the RayCtx of
-    the rays at wavefront slots `slot`."""
+    radiance (N, 3) in wavefront order. `ctx` gives the RayCtx of each
+    wavefront slot."""
     dev = rays.origin.device
     n = rays.count
     used_kinds = scene.packed.used_kinds
@@ -282,7 +327,7 @@ def _trace_sorted(scene: Scene, ds: DeviceScene, mats: MaterialRows,
         if n_live == 0:  # whole-wavefront early-out
             break
         with span("wavefront.bounce"):
-            state = _bounce_body(ds, mats, used_kinds, cfg, state, ctx_of(slot), b)
+            state = _sorted_bounce(ds, mats, used_kinds, cfg, state, ctx, slot, b)
     with span("wavefront.unsort"):
         done_slots.append(slot)
         done_rad.append(state[2])
@@ -314,17 +359,24 @@ def _trace_fused(scene: Scene, rays: Rays, ctx: rng.RayCtx,
     return path_trace(scene.packed, rays, ctx, cfg) + _grad_probe(scene)
 
 
+def _slot_ctx(ctx: rng.RayCtx) -> rng.SlotCtx:
+    """The SlotCtx of a wavefront in ray order: slot s is ray s, with key
+    words per ray, or one pair for every ray."""
+    pid = ctx.pixel_id.to(torch.int64).contiguous()
+    n = max(1, pid.shape[0])
+    words = [torch.as_tensor(w, dtype=torch.int64, device=pid.device).reshape(-1)
+             for w in (ctx.base0, ctx.base1)]
+    per_ray = any(torch.is_tensor(w) and w.dim() for w in (ctx.base0, ctx.base1))
+    if per_ray:
+        words = [w.expand(pid.shape[0]).contiguous() for w in words]
+    return rng.SlotCtx(pid, *words, n, 1 if per_ray else n)
+
+
 def _trace(scene: Scene, target, mats: MaterialRows, rays: Rays,
            ctx: rng.RayCtx, cfg: RenderConfig) -> torch.Tensor:
     """`trace` on the target and material table of `_scene_on`."""
     if _sorted_eligible(scene):
-        pid, b0, b1 = ctx
-
-        def ctx_of(slot):
-            return rng.RayCtx(pid[slot], *(w[slot] if torch.is_tensor(w) and w.dim()
-                                           else w for w in (b0, b1)))
-
-        return _trace_sorted(scene, target, mats, rays, cfg, ctx_of)
+        return _trace_sorted(scene, target, mats, rays, cfg, _slot_ctx(ctx))
     if _fused_eligible(scene, cfg):
         return _trace_fused(scene, rays, ctx, cfg)
     used_kinds = scene.packed.used_kinds if scene.packed is not None else None
@@ -355,11 +407,8 @@ def _render_pass_sorted(scene: Scene, frame, sample_words,
                                                      cfg.height, device)
             tb0, tb1 = rng.key_bases(words, device)
 
-        def ctx_of(slot):
-            sid = torch.div(slot, n, rounding_mode="floor")
-            return rng.RayCtx(slot % n, tb0[sid], tb1[sid])
-
-        radiance = _trace_sorted(scene, ds, mats, rays, cfg, ctx_of)
+        radiance = _trace_sorted(scene, ds, mats, rays, cfg,
+                                 rng.SlotCtx(None, tb0, tb1, n, n))
         for s in range(words.shape[0]):
             accum = accum + radiance[s * n: (s + 1) * n]
     return accum

@@ -196,6 +196,24 @@ def load() -> ctypes.CDLL:
             vp,                      # cudaStream_t
         ]
         fn.restype = ci
+        fn = lib.rtnw_shade  # the sorted wavefront's shading
+        ll = ctypes.c_longlong
+        fn.argtypes = [
+            vp, vp, vp,              # origin, direction (n, 3), time
+            vp, vp, vp,              # throughput, radiance (n, 3), alive (u8)
+            vp, vp, vp, vp,          # K3's t, code; K4's t, code (or null)
+            vp, vp, vp, vp, ll, ll,  # slot, pixel table (or null), key words
+                                     # (int64*); the slot divisors n, m
+            vp, ci, vp, ci, vp, ci,  # spheres (S, 10), planes (P, 7),
+                                     # triangles (T, 10) and their counts
+            vp, vp, vp, vp,          # materials: kind (int64*), albedo,
+                                     # param, emission
+            ci, ci, ci,              # n, bounce, flags
+            vp, vp, vp, vp, vp,      # origin, direction, throughput,
+                                     # radiance, alive out
+            vp,                      # cudaStream_t
+        ]
+        fn.restype = ci
         # CTAs a SM of each kernel at a launch's shared memory.
         ip = ctypes.POINTER(ci)
         fn = lib.rtnw_render_occupancy  # K1, K2, K0
@@ -212,6 +230,9 @@ def load() -> ctypes.CDLL:
         fn = lib.rtnw_worklist_occupancy  # the work-list build
         fn.argtypes = [ci, ip, ip]          # n_leaves; CTAs, threads
         fn.restype = ci
+        fn = lib.rtnw_shade_occupancy  # the shade kernel
+        fn.argtypes = [ip, ip]              # CTAs, threads
+        fn.restype = ci
         lib.rtnw_error_string.argtypes = [ci]
         lib.rtnw_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -222,8 +243,9 @@ def occupancy(query: str, *args: int) -> tuple[int, int]:
     """(CTAs resident on one SM, threads a CTA) of a kernel at a launch's
     shared memory, from its query in the library: `rtnw_render_occupancy`
     (K1, K2 or K0), `rtnw_closest_hit_occupancy` (K3),
-    `rtnw_bvh_winner_occupancy` (K4) or `rtnw_worklist_occupancy` (the
-    work-list build), with that launch's size arguments."""
+    `rtnw_bvh_winner_occupancy` (K4), `rtnw_worklist_occupancy` (the
+    work-list build) or `rtnw_shade_occupancy` (the shade kernel), with
+    that launch's size arguments."""
     ctas, threads = ctypes.c_int(0), ctypes.c_int(0)
     err = getattr(load(), query)(*args, ctypes.byref(ctas), ctypes.byref(threads))
     if err != 0:

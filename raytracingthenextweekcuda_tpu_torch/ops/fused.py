@@ -44,7 +44,7 @@ from raytracingthenextweekcuda_tpu_torch.utils.timing import span
 class DeviceScene(NamedTuple):
     """What the mesh path reads each bounce, on one device: K3's rows, K4's
     leaves (None without a tile-BVH) and the winner tables of the
-    recompute (spheres (S, 11): c0, c1, time0, time1, radius, material;
+    recompute (spheres (S, 10): c0, c1, time0, time1, radius, material;
     planes (P, 7): position, normal, material; triangles (T, 10): three
     vertices, material)."""
 
@@ -105,23 +105,47 @@ def mesh_query(leaves: LeafScene, rays: Rays, tmin: float, alive, t_sel,
     return alive_mesh, torch.where(code >= 0, t_sel, torch.full_like(t_sel, BIG))
 
 
-def intersect_scene_fused(dev_scene: DeviceScene, rays: Rays, tmin: float,
-                          alive=None) -> Hit:
-    """Closest hit of `rays` (see the module docstring). The selection
-    sees the rays detached; the recompute sees them as they are."""
+class Winners(NamedTuple):
+    """Each ray's winners before the merge: K3's closest analytic hit (t,
+    code) and K4's mesh hit (t_m, c_m; None without a tile-BVH)."""
+
+    t: torch.Tensor
+    code: torch.Tensor
+    t_m: torch.Tensor | None
+    c_m: torch.Tensor | None
+
+
+def winners(dev_scene: DeviceScene, rays: Rays, tmin: float,
+            alive=None) -> Winners:
+    """K3's and K4's winners of `rays`, unmerged. The selection sees the
+    rays detached."""
     sel = Rays(rays.origin.detach(), rays.direction.detach(),
                rays.time.detach())
     with span("k3.intersect"):
         t_sel, code = intersect_packed(sel, dev_scene.analytic, tmin, alive=alive)
-    if dev_scene.leaves is not None:
-        alive_mesh, t_cap = mesh_query(dev_scene.leaves, sel, tmin, alive,
-                                       t_sel, code)
-        t_m, c_m = intersect_packed_bvh(sel, dev_scene.leaves, tmin,
-                                        alive=alive_mesh, t_cap=t_cap)
-        pick_mesh = (c_m >= 0) & ((t_m < t_sel) | (code < 0))
-        t_sel = torch.where(pick_mesh, t_m, t_sel)
-        code = torch.where(pick_mesh, c_m, code)
-    return _recompute(dev_scene, rays, t_sel, code)
+    if dev_scene.leaves is None:
+        return Winners(t_sel, code, None, None)
+    alive_mesh, t_cap = mesh_query(dev_scene.leaves, sel, tmin, alive, t_sel, code)
+    t_m, c_m = intersect_packed_bvh(sel, dev_scene.leaves, tmin,
+                                    alive=alive_mesh, t_cap=t_cap)
+    return Winners(t_sel, code, t_m, c_m)
+
+
+def merge(w: Winners):
+    """(t_sel, code) of the closest winner: the mesh wins only when strictly
+    closer or when there is no analytic hit."""
+    if w.t_m is None:
+        return w.t, w.code
+    pick_mesh = (w.c_m >= 0) & ((w.t_m < w.t) | (w.code < 0))
+    return torch.where(pick_mesh, w.t_m, w.t), torch.where(pick_mesh, w.c_m, w.code)
+
+
+def intersect_scene_fused(dev_scene: DeviceScene, rays: Rays, tmin: float,
+                          alive=None) -> Hit:
+    """Closest hit of `rays` (see the module docstring). The selection
+    sees the rays detached; the recompute sees them as they are."""
+    return _recompute(dev_scene, rays,
+                      *merge(winners(dev_scene, rays, tmin, alive=alive)))
 
 
 def _recompute(ds: DeviceScene, rays: Rays, t_sel, code) -> Hit:
@@ -194,4 +218,5 @@ def _recompute(ds: DeviceScene, rays: Rays, t_sel, code) -> Hit:
                front_face=front & valid, material_id=material_id, valid=valid)
 
 
-__all__ = ["DeviceScene", "device_scene", "intersect_scene_fused", "mesh_query"]
+__all__ = ["DeviceScene", "Winners", "device_scene", "intersect_scene_fused", "merge",
+           "mesh_query", "winners"]

@@ -32,6 +32,27 @@ class RayCtx(NamedTuple):
     base1: torch.Tensor | int
 
 
+class SlotCtx(NamedTuple):
+    """The RayCtx of a sorted wavefront's slots, as tables: slot s holds
+    pixel `pixel[s % n]` (s % n where `pixel` is None) of the sample whose
+    key words are `base0[s // m]` and `base1[s // m]`, (S,) int64 tensors of
+    uint32 values. The shade kernel reads the same tables."""
+
+    pixel: torch.Tensor | None
+    base0: torch.Tensor
+    base1: torch.Tensor
+    n: int
+    m: int
+
+    def at(self, slot: torch.Tensor) -> RayCtx:
+        """The RayCtx of the rays at wavefront slots `slot`."""
+        pid = slot % self.n
+        if self.pixel is not None:
+            pid = self.pixel[pid]
+        sid = torch.div(slot, self.m, rounding_mode="floor")
+        return RayCtx(pid, self.base0[sid], self.base1[sid])
+
+
 def key_bases(sample_words, device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The two words of each sample's key, from the (S, 2) uint32 key words
     of ops/threefry.split, as (S,) int64 tensors."""
@@ -99,6 +120,6 @@ def raygen_uniforms(pixel_id, base0, base1) -> torch.Tensor:
 
 
 __all__ = [
-    "RayCtx", "key_bases", "pcg4d", "to_uniform", "uniforms4", "bounce_uniforms", "raygen_uniforms",
+    "RayCtx", "SlotCtx", "key_bases", "pcg4d", "to_uniform", "uniforms4", "bounce_uniforms", "raygen_uniforms",
     "shutter_uniform", "RAYGEN_DOMAIN", "RAYGEN_DOMAIN2",
 ]

@@ -7,7 +7,11 @@ resident grid, K0 from below a warp to above a resident grid; K3 and K4
 bit for bit, K4 also for every count of rays that need a leaf, on ties
 and on skipped prefetches, and K4's stats counters equal to the plain
 version's; the work-list kernel's lists equal to its plain torch loop's;
-K1 bit for bit on the 488 spheres of the RTiOW final scene), renders (and
+K1 bit for bit on the 488 spheres of the RTiOW final scene; the shade
+kernel bit for bit against its plain torch version on wavefronts with dead
+rays, with and without Russian roulette and the sky, on all 8 material
+kinds and without Lambertian, over a whole sorted image, and out of the
+way of run_fit_mesh's gradient), renders (and
 one backward of the differentiable wavefront and of the LBVH regime, and a
 scene file through `render --scene`) on the card
 against the same on the CPU, tile-sharded passes on the card against
@@ -780,3 +784,211 @@ def test_bench_line_on_card(cuda_device):
     assert 0 < line["fp32_util"] <= 1.05 and line["fp32_peak_ops"] > 0
     for key in ("mesh_bvh", "mesh_stress", "mesh_large"):
         assert line[key]["paths_per_sec"] > 0
+
+
+@pytest.fixture(scope="module")
+def stress_scene():
+    from raytracingthenextweekcuda_tpu_torch.apps import bench_scenes
+
+    scene, camera, _ = bench_scenes.stress_mesh_scene()
+    return finalize(scene), camera
+
+
+def _all_kinds_scene():
+    """A tile-BVH scene that uses all 8 material kinds: a coat mesh (576
+    triangles), metal, glass (one hollow), Phong, mirror and smallpt-glass
+    spheres (one moving), a light, and a wall with additive emission."""
+    from raytracingthenextweekcuda_tpu_torch.io.procedural import uv_sphere_mesh
+    from raytracingthenextweekcuda_tpu_torch.models.scene import SceneBuilder
+    from raytracingthenextweekcuda_tpu_torch.ops import geometry as g
+
+    b = SceneBuilder()
+    b.lambertian(0, (0.7, 0.6, 0.5))
+    b.metal(1, (0.8, 0.8, 0.7), 0.3)
+    b.dielectric(2, 1.5)
+    b.emission(3, (1.0, 0.9, 0.8), 4.0)
+    b.phong_metal(4, (0.9, 0.6, 0.3), 30.0)
+    b.specular(5, (0.9, 0.9, 0.9))
+    b.coat(6, (0.2, 0.5, 0.8))
+    b.refraction(7, 1.5)
+    b.material(8, g.LAMBERTIAN, (0.5, 0.5, 0.5), emission=(0.3, 0.2, 0.1))
+    sphere = uv_sphere_mesh(0.3, (0.0, 0.0, -0.5), 12, 24)
+    b.mesh(np.ascontiguousarray(sphere[:, ::-1]), 6)
+    b.sphere((-0.75, 0.0, -0.5), 0.3, 1)
+    b.sphere((0.75, 0.0, -0.5), 0.3, 2)
+    b.sphere((0.75, 0.0, -0.5), -0.27, 2)
+    b.moving_sphere((-0.4, 0.5, -0.8), (-0.3, 0.6, -0.8), 0.0, 1.0, 0.2, 4)
+    b.sphere((0.4, 0.5, -0.9), 0.2, 5)
+    b.sphere((0.0, -0.3, 0.2), 0.15, 7)
+    b.plane((0.0, -0.5, 0.0), (0.0, 1.0, 0.0), (3.0, 0.0, 3.0), g.PLANE_XZ, 0)
+    b.plane((0.0, 1.2, -0.5), (0.0, 1.0, 0.0), (0.6, 0.0, 0.6), g.PLANE_XZ, 3,
+            two_sided=False)
+    b.plane((0.0, 0.0, -1.6), (0.0, 0.0, 1.0), (3.0, 3.0, 0.0), g.PLANE_XY, 8)
+    camera = tcam.Camera.make(eye=(0.0, 0.3, 1.6), center=(0.0, 0.0, -0.4), fov=60.0,
+                              aperture=0.0, focus_distance=1.9, time1=1.0)
+    scene = finalize(b.build())
+    assert scene.packed.leaf_bounds is not None
+    assert set(scene.packed.used_kinds) == set(range(8))
+    return scene, camera
+
+
+def _shade_front(scene, camera, device, cfg, bounce, size=128, samples=2):
+    """The sorted engine's wavefront at bounce `bounce` of a 2-sample pass,
+    on `device`: the torch body before it, and before each later bounce a
+    sort that keeps the dead rays (misses and ended paths) at the tail.
+    Returns (ds, mats, state, winners, slot tables, slots)."""
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import shade_kernel as sk
+    from raytracingthenextweekcuda_tpu_torch.ops.fused import device_scene, winners
+    from raytracingthenextweekcuda_tpu_torch.ops.materials import material_table
+    from raytracingthenextweekcuda_tpu_torch.ops.wavefront_sort import ray_sort_key
+
+    words = threefry.split(threefry.key(13), samples)
+    rays, _ = tcam.generate_rays_multi(tcam.derive(camera, 1.0), words, size, size,
+                                       device)
+    tb0, tb1 = rng.key_bases(words, device)
+    ctx = rng.SlotCtx(None, tb0, tb1, size * size, size * size)
+    ds = device_scene(scene, device)
+    mats = material_table(scene.materials, device)
+    n = rays.count
+    state = (rays, torch.ones((n, 3), device=device), torch.zeros((n, 3), device=device),
+             torch.ones((n,), dtype=torch.bool, device=device))
+    slot = torch.arange(n, device=device)
+    bounds = torch.from_numpy(scene.packed.bvh_bounds[:, 0].copy()).to(device)
+    for b in range(bounce + 1):
+        if b:
+            key = ray_sort_key(state[0].origin, state[0].direction, state[3],
+                               bounds[0:3], bounds[3:6])
+            perm = torch.argsort(key, stable=True)
+            state = (state[0].take(perm), state[1][perm], state[2][perm],
+                     state[3][perm])
+            slot = slot[perm]
+        win = winners(ds, state[0], cfg.tmin, alive=state[3])
+        if b < bounce:
+            state = sk.shade_reference(ds, mats, scene.packed.used_kinds, cfg, state,
+                                       win, ctx, slot, b)
+    return ds, mats, state, win, ctx, slot
+
+
+def _bit_equal(name, out, plain):
+    """The shade kernel's state against its plain version's, bit for bit:
+    rays, throughput, radiance and alive flags."""
+    rows = (("origin", out[0].origin, plain[0].origin),
+            ("direction", out[0].direction, plain[0].direction),
+            ("time", out[0].time, plain[0].time), ("throughput", out[1], plain[1]),
+            ("radiance", out[2], plain[2]))
+    for what, a, b in rows:
+        assert bool(torch.isfinite(b).all()), f"{name} {what}: plain not finite"
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            diff = (a.double() - b.double()).abs()
+            raise AssertionError(f"{name} {what}: {int((a != b).sum())} values differ, "
+                                 f"max |diff| {float(diff.max())}")
+    assert torch.equal(out[3], plain[3]), f"{name}: alive flags differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sky", [True, False], ids=["sky", "no_sky"])
+@pytest.mark.parametrize("rr", [False, True], ids=["no_rr", "rr"])
+@pytest.mark.parametrize("bounce", [0, 2], ids=["primary", "sorted"])
+def test_shade_kernel_matches_plain_on_card(bounce, rr, sky, cuda_device,
+                                            stress_scene):
+    """The shade kernel against its plain torch version on the mesh stress
+    stand-in's wavefronts: the primary one, with a tenth of its rays dead,
+    and one after two bounces and a sort, whose dead rays sit at its tail."""
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import shade_kernel as sk
+
+    scene, camera = stress_scene
+    cfg = RenderConfig(russian_roulette=rr, rr_start_bounce=0, sky_background=sky)
+    ds, mats, state, win, ctx, slot = _shade_front(scene, camera, cuda_device, cfg,
+                                                   bounce)
+    if bounce == 0:
+        keep = torch.rand(state[3].shape, generator=torch.Generator().manual_seed(3))
+        state = (*state[:3], (keep > 0.1).to(cuda_device))
+    dead = int((~state[3]).sum())
+    assert dead > 0 and int((win.c_m >= 0).sum()) > 0
+    used = scene.packed.used_kinds
+    before = sk.SHADE_LAUNCHES
+    out = sk.shade(ds, mats, used, cfg, state, win, ctx, slot, bounce)
+    assert sk.SHADE_LAUNCHES == before + 1
+    plain = sk.shade_reference(ds, mats, used, cfg, state, win, ctx, slot, bounce)
+    _bit_equal(f"bounce {bounce}", out, plain)
+    assert bool(out[3].any()) and not bool(out[3][~state[3]].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("used", ["scene", "no_lambertian"])
+@pytest.mark.parametrize("bounce", [0, 1])
+def test_shade_kernel_all_material_kinds_on_card(bounce, used, cuda_device):
+    """Every material kind, and the kinds a scene leaves out take the
+    plain version's defaults: without Lambertian the direction is the
+    normal."""
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import shade_kernel as sk
+
+    scene, camera = _all_kinds_scene()
+    cfg = RenderConfig(russian_roulette=True, rr_start_bounce=1)
+    ds, mats, state, win, ctx, slot = _shade_front(scene, camera, cuda_device, cfg,
+                                                   bounce)
+    kinds = tuple(range(8)) if used == "scene" else tuple(range(1, 8))
+    code = torch.where((win.c_m >= 0) & ((win.t_m < win.t) | (win.code < 0)),
+                       win.c_m, win.code)
+    assert {1, 2, 3} <= set((code[code >= 0] >> 24).unique().tolist())
+    out = sk.shade(ds, mats, kinds, cfg, state, win, ctx, slot, bounce)
+    plain = sk.shade_reference(ds, mats, kinds, cfg, state, win, ctx, slot, bounce)
+    _bit_equal(f"{used} bounce {bounce}", out, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["stress", "all_kinds"])
+def test_sorted_render_with_shade_kernel_matches_plain(which, cuda_device,
+                                                       stress_scene, monkeypatch):
+    """A whole `_trace_sorted` image: with the shade kernel against the
+    torch body on the card, bit for bit, one launch a bounce."""
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import shade_kernel as sk
+
+    scene, camera = stress_scene if which == "stress" else _all_kinds_scene()
+    cfg = RenderConfig(width=64, height=48, spp=4, bounces=6, spp_per_pass=2,
+                       russian_roulette=True, rr_start_bounce=2)
+    before = sk.SHADE_LAUNCHES
+    card = integrator.render(scene, camera, cfg, device=cuda_device)
+    launches = sk.SHADE_LAUNCHES - before
+    assert 2 <= launches <= 2 * cfg.bounces
+    monkeypatch.setattr(integrator, "_kernel_shades", lambda *args: False)
+    plain = integrator.render(scene, camera, cfg, device=cuda_device)
+    assert sk.SHADE_LAUNCHES == before + launches
+    assert torch.equal(card.accum.view(torch.int32), plain.accum.view(torch.int32))
+    assert float(card.accum.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_fit_mesh_on_card_takes_the_torch_body_for_its_gradient(cuda_device,
+                                                                monkeypatch,
+                                                                tmp_path):
+    """run_fit_mesh on the card: the renders under grad take the torch body
+    (no shade launch), and a few steps give the same losses with the shade
+    kernel in the no-grad renders as with the torch body everywhere."""
+    from raytracingthenextweekcuda_tpu_torch.apps import fit
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import shade_kernel as sk
+
+    size, spp = 24, 2
+    cfg = fit.fit_config(size, size, spp)
+    key = threefry.key(0)
+    anchor = fit.refinalize(fit.make_mesh_scene(), np.zeros(3, np.float32))
+    with torch.no_grad():
+        target = integrator.render_gbuffer(anchor, fit.fit_camera(), key, cfg, spp,
+                                           device=cuda_device)
+    scale = torch.tensor([0.02, -0.03, 0.01], device=cuda_device, requires_grad=True)
+    before = sk.SHADE_LAUNCHES
+    fit.mesh_fit_loss(scale, anchor, torch.zeros(3, device=cuda_device), target,
+                      fit.fit_camera(), key, cfg, spp, cuda_device).backward()
+    assert sk.SHADE_LAUNCHES == before
+    assert bool(torch.isfinite(scale.grad).all()) and float(scale.grad.abs().max()) > 0
+    runs = {}
+    for kernel in (True, False):
+        if not kernel:
+            monkeypatch.setattr(integrator, "_kernel_shades", lambda *args: False)
+        losses, before = [], sk.SHADE_LAUNCHES
+        fit.run_fit_mesh(steps=3, out=str(tmp_path / f"fit_{kernel}.png"), width=size,
+                         height=size, spp=spp, refresh=2, device=cuda_device,
+                         verbose=False, losses=losses)
+        runs[kernel] = (losses, sk.SHADE_LAUNCHES - before)
+    assert runs[True][0] == runs[False][0] and len(runs[True][0]) == 3
+    assert runs[True][1] > 0 and runs[False][1] == 0
