@@ -172,6 +172,8 @@ import time
 import numpy as np
 import torch
 
+from raytracingthenextweekcuda_tpu_torch.ops.cuda.launch import LAUNCHES
+
 
 ROOT = pathlib.Path(__file__).resolve().parent
 # Appended to scenes/cornellbox.yaml: the repository's 3,968-triangle sphere,
@@ -505,16 +507,13 @@ def _phase21(dev, card) -> None:
     import io
 
     from raytracingthenextweekcuda_tpu_torch import cli
-    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bounce_kernel as bk
-    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
-    from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
 
     out = io.StringIO()
-    bk.KERNEL_LAUNCHES = k3.KERNEL_LAUNCHES = k4.KERNEL_LAUNCHES = k4.STATS_LAUNCHES = 0
+    LAUNCHES["K1"] = LAUNCHES["K3"] = LAUNCHES["K4"] = LAUNCHES["K4-stats"] = 0
     with contextlib.redirect_stdout(out):
         ms, rc = _host_ms(lambda: cli.main(["bench"]))
-    launches = (bk.KERNEL_LAUNCHES, k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES,
-                k4.STATS_LAUNCHES)
+    launches = (LAUNCHES["K1"], LAUNCHES["K3"], LAUNCHES["K4"],
+                LAUNCHES["K4-stats"])
     lines = out.getvalue().strip().splitlines()
     line = json.loads(lines[-1]) if rc == 0 and lines else {}
     if rc != 0 or min(launches) <= 0:
@@ -542,7 +541,6 @@ def _phase18(dev, card, stats_inputs, primary, k4_bound, k4_occ) -> dict:
     from raytracingthenextweekcuda_tpu_torch.apps import bench
     from raytracingthenextweekcuda_tpu_torch.config import EPSILON
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
-    from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
 
     for tag, args, leaves in stats_inputs:
         t, c, st = k4.winner(*args, leaves, EPSILON, stats=True)
@@ -578,9 +576,9 @@ def _phase18(dev, card, stats_inputs, primary, k4_bound, k4_occ) -> dict:
     results = {}
     for label, run in (("mesh_stress", bench.run_mesh_stress),
                        ("mesh_large", bench.run_mesh_large)):
-        k3.KERNEL_LAUNCHES = k4.KERNEL_LAUNCHES = k4.STATS_LAUNCHES = 0
+        LAUNCHES["K3"] = LAUNCHES["K4"] = LAUNCHES["K4-stats"] = 0
         result = run(device=dev, keep_film=True)
-        launches = (k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES, k4.STATS_LAUNCHES)
+        launches = (LAUNCHES["K3"], LAUNCHES["K4"], LAUNCHES["K4-stats"])
         film = result.pop("film")
         if launches[0] <= 0 or launches[1] <= 0:
             raise AssertionError(f"{label} launched K3 and K4 {launches[:2]} times")
@@ -618,9 +616,6 @@ def _phase19(dev, card) -> None:
     from raytracingthenextweekcuda_tpu_torch.models import integrator, presets
     from raytracingthenextweekcuda_tpu_torch.models.scene import finalize, with_leaves
     from raytracingthenextweekcuda_tpu_torch.ops import threefry
-    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bounce_kernel as bk
-    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
-    from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
     from raytracingthenextweekcuda_tpu_torch.parallel.mesh import make_mesh
     from raytracingthenextweekcuda_tpu_torch.parallel.multihost import measure_scaling
     from raytracingthenextweekcuda_tpu_torch.parallel.render import render_pass_sharded
@@ -639,12 +634,12 @@ def _phase19(dev, card) -> None:
         single = integrator.render_pass(scene, camera, key, ccfg, ccfg.spp, device=dev)
         line = []
         for n in (1, 2, 4):
-            bk.KERNEL_LAUNCHES = bk.PATH_LAUNCHES = 0
-            k3.KERNEL_LAUNCHES = k4.KERNEL_LAUNCHES = 0
+            LAUNCHES["K1"] = LAUNCHES["K2"] = 0
+            LAUNCHES["K3"] = LAUNCHES["K4"] = 0
             ms, out = _host_ms(lambda: render_pass_sharded(
                 scene, camera, key, ccfg, ccfg.spp, make_mesh(n, [dev] * n)))
-            k1, k2 = bk.KERNEL_LAUNCHES, bk.PATH_LAUNCHES
-            n3, n4 = k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES
+            k1, k2 = LAUNCHES["K1"], LAUNCHES["K2"]
+            n3, n4 = LAUNCHES["K3"], LAUNCHES["K4"]
             if (k1 != (n if "K1" in uses else 0) or k2 or (n3 > 0) != ("K3" in uses)
                     or (n4 > 0) != ("K4" in uses)):
                 raise AssertionError(f"{name} over {n} tiles launched K1 {k1}, K2 "
@@ -658,15 +653,15 @@ def _phase19(dev, card) -> None:
 
     with tempfile.TemporaryDirectory() as tmp:
         out = f"{tmp}/shards.png"
-        bk.KERNEL_LAUNCHES = 0
+        LAUNCHES["K1"] = 0
         ms, rc = _host_ms(lambda: cli.main(["render", "--shards", "2", "--out", out]))
         img = image_io.read_png(out).astype(np.float64)
         left = img[170:340, 5:40].reshape(-1, 3).mean(0)
         right = img[170:340, -40:-5].reshape(-1, 3).mean(0)
-        if (rc != 0 or bk.KERNEL_LAUNCHES != 2 or img.shape != (512, 512, 3)
+        if (rc != 0 or LAUNCHES["K1"] != 2 or img.shape != (512, 512, 3)
                 or not (left[0] > left[2] and right[2] > right[0])):
             raise AssertionError(f"render --shards 2: rc {rc}, K1 launches "
-                                 f"{bk.KERNEL_LAUNCHES}, image {img.shape}, walls "
+                                 f"{LAUNCHES['K1']}, image {img.shape}, walls "
                                  f"{left} {right}")
     print(f"[19 render --shards 2] cornell 512x512, 32 spp through cli.main: "
           f"{ms:.1f} ms host, K1 launches 2 (one a tile) | left wall rgb "
@@ -710,18 +705,17 @@ def _phase20(dev) -> None:
     from raytracingthenextweekcuda_tpu_torch import cli
     from raytracingthenextweekcuda_tpu_torch.apps.viewer import HTTPViewer
     from raytracingthenextweekcuda_tpu_torch.io import image as image_io
-    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bounce_kernel as bk
 
     frames = io.StringIO()
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)  # the screenshot goes to the working directory
         try:
-            bk.KERNEL_LAUNCHES = 0
+            LAUNCHES["K1"] = 0
             with contextlib.redirect_stdout(frames):
                 ms, rc = _host_ms(lambda: cli.main(["live", "--script",
                                                     "w enter j ] x"]))
-            launches = bk.KERNEL_LAUNCHES
+            launches = LAUNCHES["K1"]
             shot = pathlib.Path(tmp) / "render_256x256_spp2.png"
             img = image_io.read_png(str(shot)) if shot.exists() else None
         finally:
@@ -794,12 +788,12 @@ def _phase22(dev, card, wl_regs) -> dict:
                 continue
             t, code = k3.intersect_packed(rays, ds.analytic, EPSILON, alive=alive)
             alive_mesh, t_cap = mesh_query(ds.leaves, rays, EPSILON, alive, t, code)
-            before = k4.WORKLIST_LAUNCHES
+            before = LAUNCHES["worklist"]
             args = k4.winner_inputs(rays, ds.leaves, EPSILON, alive_mesh, t_cap)
-            if k4.WORKLIST_LAUNCHES != before + 1:
+            if LAUNCHES["worklist"] != before + 1:
                 raise AssertionError(f"{label}/{front}: the build launched the "
                                      f"work-list kernel "
-                                     f"{k4.WORKLIST_LAUNCHES - before} times")
+                                     f"{LAUNCHES['worklist'] - before} times")
             wl = args[4]
             plain = k4.worklist_reference(*args[:4], ds.leaves.leaf_bounds, EPSILON)
             for name in ("counts", "order", "entry"):
@@ -912,9 +906,9 @@ def _phase24(dev, card, shade_regs) -> dict:
     slot = torch.arange(n, device=dev)
     win = winners(ds, rays, EPSILON, alive=state[3])
     args = (ds, mats, scene.packed.used_kinds, cfg, state, win, ctx, slot, 0)
-    before = sk.SHADE_LAUNCHES
+    before = LAUNCHES["shade"]
     out = sk.shade(*args)
-    if sk.SHADE_LAUNCHES != before + 1:
+    if LAUNCHES["shade"] != before + 1:
         raise AssertionError("shade did not launch the shade kernel once")
     plain = sk.shade_reference(*args)
     for name, k, p in (("origin", out[0].origin, plain[0].origin),
@@ -961,7 +955,6 @@ def main() -> None:
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
-    from raytracingthenextweekcuda_tpu_torch.ops.cuda import shade_kernel as sk
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import work
     from raytracingthenextweekcuda_tpu_torch.ops.fused import mesh_query
     from raytracingthenextweekcuda_tpu_torch.ops.rays import Rays
@@ -1074,9 +1067,9 @@ def main() -> None:
           f"{float(np.abs(on_card - on_cpu).max()):.3e}", flush=True)
 
     # 4. K1 main path
-    bk.KERNEL_LAUNCHES = 0
+    LAUNCHES["K1"] = 0
     result = run_bench(device=dev, keep_film=True, mesh=False)
-    k1_launches = bk.KERNEL_LAUNCHES
+    k1_launches = LAUNCHES["K1"]
     film = result.pop("film")
     if k1_launches <= 0:
         raise AssertionError("the headline render did not launch K1")
@@ -1193,13 +1186,13 @@ def main() -> None:
           f"6 bounces: max|diff| {mesh_err:.3e} (rtol=atol=1e-4)", flush=True)
 
     # 8. mesh main path
-    k3.KERNEL_LAUNCHES = 0
-    k4.KERNEL_LAUNCHES = k4.WORKLIST_LAUNCHES = 0
-    sk.SHADE_LAUNCHES = 0
+    LAUNCHES["K3"] = 0
+    LAUNCHES["K4"] = LAUNCHES["worklist"] = 0
+    LAUNCHES["shade"] = 0
     mesh_result = run_mesh_bench(device=dev, keep_film=True)
-    k3_launches, k4_launches = k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES
-    wl_launches = k4.WORKLIST_LAUNCHES
-    shade_launches = sk.SHADE_LAUNCHES
+    k3_launches, k4_launches = LAUNCHES["K3"], LAUNCHES["K4"]
+    wl_launches = LAUNCHES["worklist"]
+    shade_launches = LAUNCHES["shade"]
     film = mesh_result.pop("film")
     if (k3_launches <= 0 or k4_launches <= 0 or wl_launches != k4_launches
             or shade_launches != k3_launches):
@@ -1314,14 +1307,14 @@ def main() -> None:
         print(f"[10 K0 vs plain] cornell 512x512, bounce 2, do_rr={do_rr}: "
               f"alive equal ({int(k0[7].sum())} of {rays.count} go on), "
               f"max|diff| {err:.3e} (bit for bit)", flush=True)
-    bk.BOUNCE_LAUNCHES = 0
+    LAUNCHES["K0"] = 0
     carry = bk.planar_state(rays)
     for b in range(head.bounces):
         carry = bk.bounce_step(cornell.packed, carry,
                                rng.bounce_uniforms(ctx.pixel_id, ctx.base0,
                                                    ctx.base1, b),
                                b >= head.rr_start_bounce, head)
-    k0_launches = bk.BOUNCE_LAUNCHES
+    k0_launches = LAUNCHES["K0"]
     if k0_launches != head.bounces:
         raise AssertionError(f"ten bounce_step calls launched K0 {k0_launches} times")
     err = _check_close("ten K0 steps vs K2", torch.stack(carry[11:14], 1), k2_out)
@@ -1331,9 +1324,9 @@ def main() -> None:
           f"{err:.3e} (rtol=atol=1e-4)", flush=True)
 
     # 11. G-buffer main path: K3 and K2
-    bk.PATH_LAUNCHES = bk.KERNEL_LAUNCHES = k3.KERNEL_LAUNCHES = 0
+    LAUNCHES["K2"] = LAUNCHES["K1"] = LAUNCHES["K3"] = 0
     gbuf = integrator.render_gbuffer(cornell, camera, key, head, head.spp, device=dev)
-    k2_launches, k3_gb, k1_gb = bk.PATH_LAUNCHES, k3.KERNEL_LAUNCHES, bk.KERNEL_LAUNCHES
+    k2_launches, k3_gb, k1_gb = LAUNCHES["K2"], LAUNCHES["K3"], LAUNCHES["K1"]
     if k2_launches != head.spp or k3_gb < head.spp or k1_gb:
         raise AssertionError(f"the G-buffer render launched K2 {k2_launches}, "
                              f"K3 {k3_gb} and K1 {k1_gb} times")
@@ -1363,10 +1356,10 @@ def main() -> None:
     # 12. the differentiable engine
     wf_cfg = RenderConfig(width=512, height=512, spp=2, bounces=10,
                           fused_bounce=False)
-    bk.PATH_LAUNCHES = bk.KERNEL_LAUNCHES = k3.KERNEL_LAUNCHES = 0
+    LAUNCHES["K2"] = LAUNCHES["K1"] = LAUNCHES["K3"] = 0
     wf_ms, wf_img = _host_ms(lambda: integrator.render_pass(cornell, camera, key,
                                                             wf_cfg, 2, device=dev))
-    k3_wf, k12_wf = k3.KERNEL_LAUNCHES, bk.KERNEL_LAUNCHES + bk.PATH_LAUNCHES
+    k3_wf, k12_wf = LAUNCHES["K3"], LAUNCHES["K1"] + LAUNCHES["K2"]
     if k3_wf <= 0 or k12_wf:
         raise AssertionError(f"the wavefront render launched K3 {k3_wf} and "
                              f"K1/K2 {k12_wf} times")
@@ -1548,13 +1541,13 @@ def main() -> None:
     sorted_eligible = integrator._sorted_eligible
     integrator._sorted_eligible = lambda *_: False
     try:
-        bk.KERNEL_LAUNCHES = bk.KERNEL_BVH_LAUNCHES = 0
+        LAUNCHES["K1"] = LAUNCHES["K1-BVH"] = 0
         k1b_render_ms, film = _host_ms(
             lambda: integrator.render(mesh, mcam, mesh_cfg, device=dev))
-        k1b_launches = bk.KERNEL_BVH_LAUNCHES
-        if not k1b_launches == bk.KERNEL_LAUNCHES == len(mesh_cfg.passes()):
+        k1b_launches = LAUNCHES["K1-BVH"]
+        if not k1b_launches == LAUNCHES["K1"] == len(mesh_cfg.passes()):
             raise AssertionError(f"the forced mesh render launched K1 "
-                                 f"{bk.KERNEL_LAUNCHES} times, {k1b_launches} "
+                                 f"{LAUNCHES['K1']} times, {k1b_launches} "
                                  "with the walk")
         forced = film.mean.cpu().numpy()
         if not np.isfinite(forced).all():
@@ -1575,13 +1568,13 @@ def main() -> None:
               f"{card}", flush=True)
 
         gcfg = RenderConfig(width=512, height=512, spp=2, bounces=10)
-        bk.PATH_LAUNCHES = bk.PATH_BVH_LAUNCHES = bk.KERNEL_LAUNCHES = 0
+        LAUNCHES["K2"] = LAUNCHES["K2-BVH"] = LAUNCHES["K1"] = 0
         gbuf = integrator.render_gbuffer(mesh, mcam, key, gcfg, gcfg.spp, device=dev)
-        k2b_launches = bk.PATH_BVH_LAUNCHES
-        if not k2b_launches == bk.PATH_LAUNCHES == gcfg.spp or bk.KERNEL_LAUNCHES:
+        k2b_launches = LAUNCHES["K2-BVH"]
+        if not k2b_launches == LAUNCHES["K2"] == gcfg.spp or LAUNCHES["K1"]:
             raise AssertionError(f"the forced mesh G-buffer launched K2 "
-                                 f"{bk.PATH_LAUNCHES} times, {k2b_launches} with "
-                                 f"the walk, and K1 {bk.KERNEL_LAUNCHES}")
+                                 f"{LAUNCHES['K2']} times, {k2b_launches} with "
+                                 f"the walk, and K1 {LAUNCHES['K1']}")
         via_k1 = integrator.render_pass(mesh, mcam, key, gcfg, gcfg.spp, device=dev)
         err = _check_close("K2-BVH G-buffer radiance vs K1-BVH", gbuf["radiance"],
                            via_k1)
@@ -1598,17 +1591,17 @@ def main() -> None:
                                     device=dev)
     mpath = bk.path_inputs(mesh.packed, mrays, mctx, head)
     k2b_out = bk.path_kernel(mpath)
-    bk.BOUNCE_LAUNCHES = bk.BOUNCE_BVH_LAUNCHES = 0
+    LAUNCHES["K0"] = LAUNCHES["K0-BVH"] = 0
     carry = bk.planar_state(mrays)
     for b in range(head.bounces):
         carry = bk.bounce_step(mesh.packed, carry,
                                rng.bounce_uniforms(mctx.pixel_id, mctx.base0,
                                                    mctx.base1, b),
                                b >= head.rr_start_bounce, head)
-    k0b_launches = bk.BOUNCE_BVH_LAUNCHES
-    if not k0b_launches == bk.BOUNCE_LAUNCHES == head.bounces:
+    k0b_launches = LAUNCHES["K0-BVH"]
+    if not k0b_launches == LAUNCHES["K0"] == head.bounces:
         raise AssertionError(f"ten bounce_step calls on the mesh launched K0 "
-                             f"{bk.BOUNCE_LAUNCHES} times, {k0b_launches} with the walk")
+                             f"{LAUNCHES['K0']} times, {k0b_launches} with the walk")
     err = _check_close("ten K0-BVH steps vs K2-BVH", torch.stack(carry[11:14], 1),
                        k2b_out)
     bvh_err["K0"] = max(bvh_err["K0"], err)
@@ -1706,15 +1699,15 @@ def main() -> None:
     lbvh = build_bvh(raw.triangles)
     lscene = dataclasses.replace(raw, bvh=lbvh)
     lcfg = RenderConfig(width=128, height=128, spp=2, bounces=4, spp_per_pass=2)
-    k3.KERNEL_LAUNCHES = bk.KERNEL_LAUNCHES = bk.PATH_LAUNCHES = 0
+    LAUNCHES["K3"] = LAUNCHES["K1"] = LAUNCHES["K2"] = 0
     traverse.STEPS = 0
     lbvh_ms, film = _host_ms(lambda: integrator.render(lscene, lcam, lcfg, device=dev))
     lbvh_steps = traverse.STEPS
-    if (lbvh_steps <= 0 or k3.KERNEL_LAUNCHES or bk.KERNEL_LAUNCHES
-            or bk.PATH_LAUNCHES):
+    if (lbvh_steps <= 0 or LAUNCHES["K3"] or LAUNCHES["K1"]
+            or LAUNCHES["K2"]):
         raise AssertionError(f"the unfinalized LBVH render walked {lbvh_steps} "
-                             f"steps and launched K3 {k3.KERNEL_LAUNCHES}, K1 "
-                             f"{bk.KERNEL_LAUNCHES} and K2 {bk.PATH_LAUNCHES} times")
+                             f"steps and launched K3 {LAUNCHES['K3']}, K1 "
+                             f"{LAUNCHES['K1']} and K2 {LAUNCHES['K2']} times")
     on_card = film.accum.cpu().numpy()
     on_cpu = integrator.render(lscene, lcam, lcfg, device="cpu").accum.numpy()
     lbvh_err = _check_close("LBVH render card vs CPU", torch.from_numpy(on_card),
@@ -1781,13 +1774,13 @@ def main() -> None:
         raise AssertionError("LBVH walk vs brute force: no ray hit the mesh")
 
     fscene = dataclasses.replace(finalize(raw, use_bvh=False), bvh=lbvh)
-    k3.KERNEL_LAUNCHES = bk.KERNEL_LAUNCHES = bk.PATH_LAUNCHES = 0
+    LAUNCHES["K3"] = LAUNCHES["K1"] = LAUNCHES["K2"] = 0
     traverse.STEPS = 0
     fin_ms, film = _host_ms(lambda: integrator.render(fscene, lcam, lcfg, device=dev))
-    fin_k3, fin_steps = k3.KERNEL_LAUNCHES, traverse.STEPS
-    if fin_k3 <= 0 or fin_steps <= 0 or bk.KERNEL_LAUNCHES or bk.PATH_LAUNCHES:
+    fin_k3, fin_steps = LAUNCHES["K3"], traverse.STEPS
+    if fin_k3 <= 0 or fin_steps <= 0 or LAUNCHES["K1"] or LAUNCHES["K2"]:
         raise AssertionError(f"the finalized LBVH render launched K3 {fin_k3} times,"
-                             f" K1 {bk.KERNEL_LAUNCHES}, K2 {bk.PATH_LAUNCHES}, and "
+                             f" K1 {LAUNCHES['K1']}, K2 {LAUNCHES['K2']}, and "
                              f"walked {fin_steps} steps")
     fin_err = _check_close("finalized LBVH render card vs CPU", film.accum.cpu(),
                            integrator.render(fscene, lcam, lcfg, device="cpu").accum)
@@ -1822,14 +1815,14 @@ def main() -> None:
     cornell_yaml = str(ROOT / "scenes" / "cornellbox.yaml")
     with tempfile.TemporaryDirectory() as tmp:
         out = f"{tmp}/cornell.png"
-        bk.KERNEL_LAUNCHES = bk.KERNEL_BVH_LAUNCHES = k3.KERNEL_LAUNCHES = 0
+        LAUNCHES["K1"] = LAUNCHES["K1-BVH"] = LAUNCHES["K3"] = 0
         scene_ms, rc = _host_ms(lambda: cli.main(["render", "--scene", cornell_yaml,
                                                   "--out", out]))
-        k1_scene = bk.KERNEL_LAUNCHES
-        if rc != 0 or k1_scene != 1 or bk.KERNEL_BVH_LAUNCHES or k3.KERNEL_LAUNCHES:
+        k1_scene = LAUNCHES["K1"]
+        if rc != 0 or k1_scene != 1 or LAUNCHES["K1-BVH"] or LAUNCHES["K3"]:
             raise AssertionError(f"render --scene cornellbox.yaml: rc {rc}, K1 "
-                                 f"launches {k1_scene} ({bk.KERNEL_BVH_LAUNCHES} with "
-                                 f"the walk), K3 {k3.KERNEL_LAUNCHES}")
+                                 f"launches {k1_scene} ({LAUNCHES['K1-BVH']} with "
+                                 f"the walk), K3 {LAUNCHES['K3']}")
         img = image_io.read_png(out).astype(np.float64)
         left = img[170:340, 0:40].reshape(-1, 3).mean(0)
         right = img[170:340, -40:].reshape(-1, 3).mean(0)
@@ -1852,13 +1845,13 @@ def main() -> None:
         hi_yaml = f"{tmp}/sphere_hi.yaml"
         with open(hi_yaml, "w") as f:
             f.write(open(cornell_yaml).read() + SPHERE_HI_ENTRY)
-        k3.KERNEL_LAUNCHES = k4.KERNEL_LAUNCHES = bk.KERNEL_LAUNCHES = 0
+        LAUNCHES["K3"] = LAUNCHES["K4"] = LAUNCHES["K1"] = 0
         hi_ms, rc = _host_ms(lambda: cli.main(["render", "--scene", hi_yaml, "--spp",
                                                "16", "--out", f"{tmp}/hi.png"]))
-        k3_hi, k4_hi = k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES
-        if rc != 0 or k3_hi <= 0 or k4_hi <= 0 or bk.KERNEL_LAUNCHES:
+        k3_hi, k4_hi = LAUNCHES["K3"], LAUNCHES["K4"]
+        if rc != 0 or k3_hi <= 0 or k4_hi <= 0 or LAUNCHES["K1"]:
             raise AssertionError(f"render --scene with sphere_hi.obj: rc {rc}, K3 "
-                                 f"{k3_hi}, K4 {k4_hi}, K1 {bk.KERNEL_LAUNCHES}")
+                                 f"{k3_hi}, K4 {k4_hi}, K1 {LAUNCHES['K1']}")
         hscene, hcam = load_scene(hi_yaml)
         hi_triangles = hscene.triangles.count
         hscene = finalize(hscene)
@@ -1876,10 +1869,10 @@ def main() -> None:
                   "--checkpoint", ck, "--out", out]
         if cli.main(resume + ["--spp", "8"]) != 0 or load_render_state(ck)[2] != 1:
             raise AssertionError("--checkpoint: the first pass was not saved")
-        bk.KERNEL_LAUNCHES = 0
-        if cli.main(resume + ["--spp", "16"]) != 0 or bk.KERNEL_LAUNCHES != 1:
+        LAUNCHES["K1"] = 0
+        if cli.main(resume + ["--spp", "16"]) != 0 or LAUNCHES["K1"] != 1:
             raise AssertionError(f"--checkpoint: the resumed render launched K1 "
-                                 f"{bk.KERNEL_LAUNCHES} times (1 pass was left)")
+                                 f"{LAUNCHES['K1']} times (1 pass was left)")
         resumed, _, done = load_render_state(ck, device=dev)
         straight = integrator.render(yscene, ycam, RenderConfig(
             width=512, height=512, spp=16, bounces=10, spp_per_pass=8), device=dev)

@@ -32,7 +32,7 @@ from raytracingthenextweekcuda_tpu_torch.models.scene import (
     with_leaves,
 )
 from raytracingthenextweekcuda_tpu_torch.ops import threefry
-from raytracingthenextweekcuda_tpu_torch.ops.cuda.bounce_kernel import device_or_raise
+from raytracingthenextweekcuda_tpu_torch.ops.cuda.launch import device_or_raise
 
 TRUE_CENTERS = ((-0.45, 0.0, 0.0), (0.5, 0.05, -0.2))
 TRUE_ALBEDOS = ((0.8, 0.2, 0.2), (0.2, 0.3, 0.8))

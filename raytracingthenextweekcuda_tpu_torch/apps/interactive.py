@@ -31,7 +31,7 @@ from raytracingthenextweekcuda_tpu_torch.models import integrator
 from raytracingthenextweekcuda_tpu_torch.models.camera import Camera
 from raytracingthenextweekcuda_tpu_torch.models.film import Film, to_image
 from raytracingthenextweekcuda_tpu_torch.ops import linalg, threefry
-from raytracingthenextweekcuda_tpu_torch.ops.cuda.bounce_kernel import device_or_raise
+from raytracingthenextweekcuda_tpu_torch.ops.cuda.launch import device_or_raise
 
 
 def _f32(x) -> torch.Tensor:

@@ -100,9 +100,7 @@ def render_resumable(scene, camera, cfg, checkpoint_path=None, device="cuda",
     for bit. `after_pass(i, film)`, if given, runs after each pass."""
     from raytracingthenextweekcuda_tpu_torch.models import integrator
     from raytracingthenextweekcuda_tpu_torch.ops import threefry
-    from raytracingthenextweekcuda_tpu_torch.ops.cuda.bounce_kernel import (
-        device_or_raise,
-    )
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda.launch import device_or_raise
 
     device = device_or_raise(device)
     key = threefry.key(cfg.seed)

@@ -75,10 +75,12 @@ from raytracingthenextweekcuda_tpu_torch.ops import (
 from raytracingthenextweekcuda_tpu_torch.ops.bvh import BVH
 from raytracingthenextweekcuda_tpu_torch.ops.cuda import shade_kernel
 from raytracingthenextweekcuda_tpu_torch.ops.cuda.bounce_kernel import (
-    device_or_raise,
-    grad_probe,
     path_trace,
     render_samples,
+)
+from raytracingthenextweekcuda_tpu_torch.ops.cuda.launch import (
+    device_or_raise,
+    grad_probe,
 )
 from raytracingthenextweekcuda_tpu_torch.ops.fused import (
     DeviceScene,

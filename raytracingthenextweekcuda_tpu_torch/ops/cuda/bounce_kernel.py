@@ -18,8 +18,9 @@ The three kernels (csrc/render_kernel.cu) share one bounce body:
 Each entry dispatches by device: tensors on a CUDA device launch the kernel
 (or raise), tensors on the CPU run the plain version, the same function in
 vectorized torch. There is no fallback from one to the other. None of the
-kernels has a backward: `guard` joins each output to the inputs so that a
-backward through it raises (`ForwardOnly`) instead of giving zeros.
+kernels has a backward: `launch.guard` joins each output to the inputs so
+that a backward through it raises (`launch.ForwardOnly`) instead of giving
+zeros.
 
 Both versions round alike: float32 everywhere, with sqrt, 1/sqrt, sin, cos,
 exp and log taken in float64 and rounded to float32 (the kernel calls the
@@ -47,6 +48,7 @@ from raytracingthenextweekcuda_tpu_torch.ops.fmath import (
     sin as _sin,
     sqrt as _sqrt,
 )
+from raytracingthenextweekcuda_tpu_torch.ops.cuda import launch
 from raytracingthenextweekcuda_tpu_torch.ops.cuda.bvh_winner_kernel import real_columns
 from raytracingthenextweekcuda_tpu_torch.ops.cuda.intersect_kernel import (
     BIG,
@@ -90,16 +92,6 @@ PLA_ROWS = 13
 TYPE_ROWS = {"sph": SPH_ROWS + MAT_ROWS, "pla": PLA_ROWS + MAT_ROWS,
              "trih": HAVEL_ROWS + MAT_ROWS, "quad": HAVEL_ROWS + MAT_ROWS,
              "box": BOX_ROWS + MAT_ROWS}
-
-# Launches of K1, K2 and K0, each counted by its wrapper where it launches
-# the kernel; the *_BVH_LAUNCHES count the launches of the tile-BVH
-# instantiations among them.
-KERNEL_LAUNCHES = 0
-PATH_LAUNCHES = 0
-BOUNCE_LAUNCHES = 0
-KERNEL_BVH_LAUNCHES = 0
-PATH_BVH_LAUNCHES = 0
-BOUNCE_BVH_LAUNCHES = 0
 
 # Primitive columns the plain version tests per vectorized step.
 _PRIM_CHUNK = 256
@@ -535,17 +527,9 @@ def _tile_bvh_inputs(packed: PackedScene, device) -> dict:
                            device)
 
 
-def device_or_raise(device) -> torch.device:
-    """`device` as a torch.device; a CUDA device without CUDA raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{device} requested but CUDA is not available")
-    return device
-
-
 def scene_inputs(packed: PackedScene, cfg, device="cuda") -> SceneInputs:
     """The packed scene's rows and `cfg`'s bounce settings on `device`."""
-    device = device_or_raise(device)
+    device = launch.device_or_raise(device)
     if not packed.shaded:
         raise ValueError("the bounce kernels need a shaded pack (models.scene.finalize)")
     S, P, T = packed.counts
@@ -631,50 +615,6 @@ def bounce_inputs(packed: PackedScene, state, u4, do_rr, cfg) -> BounceInputs:
 
 
 # --------------------------------------------------------------------------
-# The guard of the forward-only kernels
-# --------------------------------------------------------------------------
-
-FORWARD_ONLY_MESSAGE = (
-    "cfg.fused_bounce=True renders with the forward-only bounce kernels "
-    "(K1, K2, K0); set fused_bounce=False for differentiable rendering "
-    "(the torch wavefront)."
-)
-
-
-class ForwardOnly(torch.autograd.Function):
-    """Identity that fails loudly under backward.
-
-    The kernels have no backward, and their outputs would carry no graph:
-    differentiating a fused render would silently give zero gradients.
-    `guard` joins a kernel's output to its inputs through this function,
-    so a backward through it raises instead."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        raise NotImplementedError(FORWARD_ONLY_MESSAGE)
-
-
-def grad_probe(*tensors):
-    """Exactly 0 in the forward, carrying every tensor of `tensors` that
-    requires grad through `ForwardOnly` (0.0 when none does)."""
-    live = [t for t in tensors if torch.is_tensor(t) and t.requires_grad]
-    if not live:
-        return 0.0
-    probe = ForwardOnly.apply(sum(t.sum() for t in live))
-    return probe - probe.detach()
-
-
-def guard(out: torch.Tensor, *inputs) -> torch.Tensor:
-    """A kernel's output joined to its inputs by `grad_probe`."""
-    probe = grad_probe(*inputs)
-    return out if isinstance(probe, float) else out + probe
-
-
-# --------------------------------------------------------------------------
 # Entries and dispatch
 # --------------------------------------------------------------------------
 
@@ -689,8 +629,8 @@ def render_samples(packed: PackedScene, frame, sample_words, cfg,
     """
     with span("k1.prep"):
         inp = render_inputs(packed, frame, sample_words, cfg, pixel_ids, device)
-    return guard(render_kernel(inp), *(getattr(frame, f.name)
-                                        for f in dataclasses.fields(frame)))
+    return launch.guard(render_kernel(inp), *(getattr(frame, f.name)
+                                               for f in dataclasses.fields(frame)))
 
 
 def render_samples_reference(packed: PackedScene, frame, sample_words, cfg,
@@ -708,7 +648,7 @@ def path_trace(packed: PackedScene, rays: Rays, ctx, cfg) -> torch.Tensor:
     CUDA device, the plain version on the CPU.
     """
     inp = path_inputs(packed, rays, ctx, cfg)
-    return guard(path_kernel(inp), rays.origin, rays.direction, rays.time)
+    return launch.guard(path_kernel(inp), rays.origin, rays.direction, rays.time)
 
 
 def path_trace_reference(packed: PackedScene, rays: Rays, ctx, cfg) -> torch.Tensor:
@@ -743,7 +683,7 @@ def bounce_step(packed: PackedScene, state, u4, do_rr, cfg) -> tuple:
     CUDA device, the plain version on the CPU."""
     inp = bounce_inputs(packed, state, u4, do_rr, cfg)
     rows, alive = bounce_kernel(inp)
-    probe = grad_probe(*state, u4)  # once a call: the trace is host-bound
+    probe = launch.grad_probe(*state, u4)  # once a call: the trace is host-bound
     if not isinstance(probe, float):
         rows = tuple(r + probe for r in rows)
     return _carry(inp, rows, alive)
@@ -755,38 +695,20 @@ def bounce_step_reference(packed: PackedScene, state, u4, do_rr, cfg) -> tuple:
     return _carry(inp, *bounce_reference(inp))
 
 
-def _dispatch(dev: torch.device, launch, plain, inp):
-    """CUDA tensors launch the kernel, CPU tensors run the plain version."""
-    if dev.type == "cuda":
-        return launch(inp)
-    if dev.type == "cpu":
-        return plain(inp)
-    raise ValueError(f"unsupported device {dev}")
-
-
 def render_kernel(inp: RenderInputs) -> torch.Tensor:
     """K1 or its plain version, by the inputs' device."""
-    return _dispatch(inp.pid.device, _launch, render_reference, inp)
+    return launch.by_device(inp.pid.device, _launch, render_reference, inp)
 
 
 def path_kernel(inp: PathInputs) -> torch.Tensor:
     """K2 or its plain version, by the inputs' device."""
-    return _dispatch(inp.pid.device, _launch_path, path_reference, inp)
+    return launch.by_device(inp.pid.device, _launch_path, path_reference, inp)
 
 
 def bounce_kernel(inp: BounceInputs) -> tuple:
     """K0 or its plain version, by the inputs' device: (the 12 (N,) float32
     rows of the carry without the time row, (N,) int32 alive)."""
-    return _dispatch(inp.alive.device, _launch_bounce, bounce_reference, inp)
-
-
-def _check(kernel: str, dev, specs) -> None:
-    for t, dtype, shape in specs:
-        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"{kernel} input {tuple(t.shape)} {t.dtype} on "
-                             f"{t.device}: expected contiguous {shape} {dtype} "
-                             f"on {dev}")
+    return launch.by_device(inp.alive.device, _launch_bounce, bounce_reference, inp)
 
 
 def _scene_specs(inp: SceneInputs) -> tuple:
@@ -829,90 +751,63 @@ def _mesh_args(inp: SceneInputs) -> tuple:
             int(inp.trih.shape[1]))
 
 
-def _raise_on(kernel: str, lib, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(
-            f"{kernel} launch failed: {lib.rtnw_error_string(err).decode()} ({err})")
+def _counted(kernel: str, inp: SceneInputs) -> tuple:
+    """The LAUNCHES names of a launch of `kernel`: its own, and with the
+    tile-BVH walk also its `-BVH` name."""
+    return (kernel, f"{kernel}-BVH") if inp.trih is not None else (kernel,)
 
 
 def _launch(inp: RenderInputs) -> torch.Tensor:
-    global KERNEL_LAUNCHES, KERNEL_BVH_LAUNCHES
-    from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
-
     dev = inp.pid.device
-    _check("K1", dev, (*_scene_specs(inp),
-                       (inp.frame, torch.float32, (21,)),
-                       (inp.words, torch.int32, (inp.words.shape[0], 2)),
-                       (inp.pid, torch.int32, (inp.pid.shape[0],))))
-    lib = build.load()
+    launch.check("K1", dev, (*_scene_specs(inp),
+                             (inp.frame, torch.float32, (21,)),
+                             (inp.words, torch.int32, (inp.words.shape[0], 2)),
+                             (inp.pid, torch.int32, (inp.pid.shape[0],))))
     n = inp.pid.shape[0]
     # The kernel runs on the current stream; the caching allocator reuses
     # the inputs' memory only for work queued after it on that stream.
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rtnw_render_samples(
-            inp.scene.data_ptr(), *inp.counts, *_mesh_args(inp),
-            inp.frame.data_ptr(),
-            inp.words.data_ptr(), int(inp.words.shape[0]),
-            inp.pid.data_ptr(), int(n),
-            inp.width, inp.height, inp.bounces, inp.rr_start,
-            float(inp.tmin), inp.flags,
-            out.data_ptr(), stream,
-        )
-    _raise_on("K1", lib, err)
-    KERNEL_LAUNCHES += 1
-    KERNEL_BVH_LAUNCHES += inp.trih is not None
+    launch.call("K1", "rtnw_render_samples", dev,
+                inp.scene.data_ptr(), *inp.counts, *_mesh_args(inp),
+                inp.frame.data_ptr(), inp.words.data_ptr(), int(inp.words.shape[0]),
+                inp.pid.data_ptr(), int(n), inp.width, inp.height, inp.bounces,
+                inp.rr_start, float(inp.tmin), inp.flags, out.data_ptr(),
+                count=_counted("K1", inp))
     return out
 
 
 def _launch_path(inp: PathInputs) -> torch.Tensor:
-    global PATH_LAUNCHES, PATH_BVH_LAUNCHES
-    from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
-
     dev = inp.pid.device
     n = inp.pid.shape[0]
-    _check("K2", dev, (*_scene_specs(inp),
-                       (inp.origin, torch.float32, (n, 3)),
-                       (inp.direction, torch.float32, (n, 3)),
-                       (inp.time, torch.float32, (n,)),
-                       (inp.pid, torch.int32, (n,))))
-    lib = build.load()
+    launch.check("K2", dev, (*_scene_specs(inp),
+                             (inp.origin, torch.float32, (n, 3)),
+                             (inp.direction, torch.float32, (n, 3)),
+                             (inp.time, torch.float32, (n,)),
+                             (inp.pid, torch.int32, (n,))))
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rtnw_path_trace(
-            inp.scene.data_ptr(), *inp.counts, *_mesh_args(inp),
-            inp.origin.data_ptr(), inp.direction.data_ptr(),
-            inp.time.data_ptr(), inp.pid.data_ptr(), *inp.words, int(n),
-            inp.bounces, inp.rr_start, float(inp.tmin), inp.flags,
-            out.data_ptr(), stream,
-        )
-    _raise_on("K2", lib, err)
-    PATH_LAUNCHES += 1
-    PATH_BVH_LAUNCHES += inp.trih is not None
+    launch.call("K2", "rtnw_path_trace", dev,
+                inp.scene.data_ptr(), *inp.counts, *_mesh_args(inp),
+                inp.origin.data_ptr(), inp.direction.data_ptr(), inp.time.data_ptr(),
+                inp.pid.data_ptr(), *inp.words, int(n), inp.bounces, inp.rr_start,
+                float(inp.tmin), inp.flags, out.data_ptr(), count=_counted("K2", inp))
     return out
 
 
 def _launch_bounce(inp: BounceInputs) -> tuple:
-    global BOUNCE_LAUNCHES, BOUNCE_BVH_LAUNCHES
-    from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
-
     dev = inp.alive.device
     n = inp.alive.shape[0]
     if len(inp.carry) != 13:
         raise ValueError(f"K0 input carry: {len(inp.carry)} rows, expected 13")
-    _check("K0", dev, (*_scene_specs(inp),
-                       *((row, torch.float32, (n,)) for row in inp.carry),
-                       (inp.alive, torch.int32, (n,)),
-                       (inp.u4, torch.float32, (n, 4))))
+    launch.check("K0", dev, (*_scene_specs(inp),
+                             *((row, torch.float32, (n,)) for row in inp.carry),
+                             (inp.alive, torch.int32, (n,)),
+                             (inp.u4, torch.float32, (n, 4))))
     if inp.u4.data_ptr() % 16:
         raise ValueError("K0 input u4: not aligned to 16 bytes")
-    lib = build.load()
     # One allocation for the 12 output rows, handed out as row views.
     out = torch.empty((12, n), dtype=torch.float32, device=dev)
     alive = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -921,17 +816,11 @@ def _launch_bounce(inp: BounceInputs) -> tuple:
     rows_in = (ctypes.c_void_p * 13)(*(row.data_ptr() for row in inp.carry))
     base = out.data_ptr()
     rows_out = (ctypes.c_void_p * 12)(*(base + 4 * n * k for k in range(12)))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rtnw_bounce_step(
-            inp.scene.data_ptr(), *inp.counts, *_mesh_args(inp),
-            rows_in, rows_out, inp.alive.data_ptr(), inp.u4.data_ptr(),
-            int(n), int(inp.do_rr), float(inp.tmin), inp.flags,
-            alive.data_ptr(), stream,
-        )
-    _raise_on("K0", lib, err)
-    BOUNCE_LAUNCHES += 1
-    BOUNCE_BVH_LAUNCHES += inp.trih is not None
+    launch.call("K0", "rtnw_bounce_step", dev,
+                inp.scene.data_ptr(), *inp.counts, *_mesh_args(inp),
+                rows_in, rows_out, inp.alive.data_ptr(), inp.u4.data_ptr(), int(n),
+                int(inp.do_rr), float(inp.tmin), inp.flags, alive.data_ptr(),
+                count=_counted("K0", inp))
     return tuple(out.unbind(0)), alive
 
 
@@ -1473,11 +1362,9 @@ def bounce_reference(inp: BounceInputs) -> tuple:
 
 
 __all__ = [
-    "BOUNCE_BVH_LAUNCHES", "BOUNCE_LAUNCHES", "BounceInputs", "ForwardOnly",
-    "KERNEL_BVH_LAUNCHES", "KERNEL_LAUNCHES", "MAT_ROWS", "PATH_BVH_LAUNCHES",
-    "PATH_LAUNCHES", "PathInputs", "RenderInputs", "SceneInputs",
+    "BounceInputs", "MAT_ROWS", "PathInputs", "RenderInputs", "SceneInputs",
     "bounce_inputs", "bounce_kernel", "bounce_reference", "bounce_step",
-    "bounce_step_reference", "device_or_raise", "grad_probe", "guard", "pack_frame",
+    "bounce_step_reference", "pack_frame",
     "pack_scene_shaded", "path_inputs", "path_kernel", "path_reference",
     "path_trace", "path_trace_reference", "planar_state", "render_inputs",
     "render_kernel", "render_reference", "render_samples",

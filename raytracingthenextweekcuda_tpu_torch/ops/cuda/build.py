@@ -31,6 +31,100 @@ COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false",
                  "-Xcompiler", "-fPIC")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_u32, _ll, _ip = ctypes.c_uint32, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
+
+# The scene arguments that K1, K2 and K0 begin with: the flat rows
+# (float*); n_sph, n_pla, n_trih, n_quad, n_box; the tile-BVH's node
+# bounds, meta, real columns, Havel rows and their column vectors (null
+# without one); the node and Havel column counts.
+_SCENE = (_vp, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci)
+
+# The library's C entries, each returning a cudaError_t as int (0 on
+# success), with their parameters in order: the launches, each ending in
+# its cudaStream_t, and each kernel's occupancy query. `rtnw_error_string`
+# (int -> const char*) is set apart in `load`. tests/test_torch_launch.py
+# holds this table to the `extern "C"` lines of csrc/*.cu.
+SIGNATURES: dict[str, tuple] = {
+    "rtnw_render_samples": (  # K1
+        *_SCENE,
+        _vp,                      # frame (21 floats)
+        _vp, _ci,                 # sample key words (2*S uint32), S
+        _vp, _ci,                 # pixel ids (int32), n
+        _ci, _ci,                 # width, height
+        _ci, _ci, _cf, _ci,       # bounces, rr_start, tmin, flags
+        _vp,                      # out (n, 3) float
+        _vp,                      # cudaStream_t
+    ),
+    "rtnw_path_trace": (  # K2
+        *_SCENE,
+        _vp, _vp, _vp, _vp,       # origin, direction (n, 3), time, pixel ids
+        _u32, _u32,               # the sample's key words
+        _ci, _ci, _ci, _cf, _ci,  # n, bounces, rr_start, tmin, flags
+        _vp,                      # out (n, 3) float
+        _vp,                      # cudaStream_t
+    ),
+    "rtnw_bounce_step": (  # K0
+        *_SCENE,
+        _vp, _vp,                 # host arrays of the carry's 13 input
+                                  # and 12 output row pointers
+        _vp, _vp,                 # alive (int32), u4 (n, 4)
+        _ci, _ci, _cf, _ci,       # n, do_rr, tmin, flags
+        _vp,                      # alive out (int32)
+        _vp,                      # cudaStream_t
+    ),
+    "rtnw_closest_hit": (  # K3
+        _vp, _ci, _ci, _ci,       # rows (float*), n_sph, n_pla, n_tri
+        _vp, _vp, _vp, _vp, _ci,  # origin, direction, time, alive (u8), n
+        _cf,                      # tmin
+        _vp, _vp,                 # t out (float*), code out (int32*)
+        _vp,                      # cudaStream_t
+    ),
+    "rtnw_bvh_winner": (  # K4
+        _vp, _vp, _vp, _vp,       # origin, direction, alive (u8), tcap
+        _ci, _vp, _vp, _vp, _ci,  # n_blocks, counts, order, entry, n_leaves
+        _vp, _vp, _vp,            # root, leaf_bounds, leaf_tiles
+        _vp, _vp, _ci,            # leaf_count, aos rows, leaf buffer width
+        _cf,                      # tmin
+        _vp, _vp,                 # t out (float*), code out (int32*)
+        _vp,                      # stats out ((n_blocks, 2) int32*) or null
+        _vp,                      # cudaStream_t
+    ),
+    "rtnw_worklist": (  # the exact work-list build
+        _vp, _vp, _vp, _vp,       # origin, direction, alive (u8), tcap
+        _ci, _vp, _ci,            # n_blocks, leaf_bounds, n_leaves
+        _cf,                      # tmin
+        _vp, _vp, _vp,            # counts, order (int32*), entry (float*) out
+        _vp,                      # cudaStream_t
+    ),
+    "rtnw_shade": (  # the sorted wavefront's shading
+        _vp, _vp, _vp,            # origin, direction (n, 3), time
+        _vp, _vp, _vp,            # throughput, radiance (n, 3), alive (u8)
+        _vp, _vp, _vp, _vp,       # K3's t, code; K4's t, code (or null)
+        _vp, _vp, _vp, _vp, _ll, _ll,  # slot, pixel table (or null), key
+                                  # words (int64*); the slot divisors n, m
+        _vp, _ci, _vp, _ci, _vp, _ci,  # spheres (S, 10), planes (P, 7),
+                                  # triangles (T, 10) and their counts
+        _vp, _vp, _vp, _vp,       # materials: kind (int64*), albedo,
+                                  # param, emission
+        _ci, _ci, _ci,            # n, bounce, flags
+        _vp, _vp, _vp, _vp, _vp,  # origin, direction, throughput,
+                                  # radiance, alive out
+        _vp,                      # cudaStream_t
+    ),
+    # Each kernel's CTAs a SM at a launch's shared memory; the last two
+    # parameters are the outputs, CTAs a SM and threads a CTA.
+    "rtnw_render_occupancy": (
+        _ci, _ci,                 # kernel (0 K1, 1 K2, 2 K0), walk
+        _ci, _ci, _ci, _ci, _ci,  # n_sph, n_pla, n_trih, n_quad, n_box
+        _ip, _ip,
+    ),
+    "rtnw_closest_hit_occupancy": (_ci, _ci, _ci, _ip, _ip),  # K3: n_sph, n_pla, n_tri
+    "rtnw_bvh_winner_occupancy": (_ci, _ip, _ip),  # K4: leaf buffer width
+    "rtnw_worklist_occupancy": (_ci, _ip, _ip),    # the work list: n_leaves
+    "rtnw_shade_occupancy": (_ip, _ip),            # the shade kernel
+}
+
 _LIB: ctypes.CDLL | None = None
 # Seconds the last build of this process took (0.0 when the cached library
 # was loaded) and what nvcc printed for each source when the library was
@@ -116,124 +210,15 @@ def build() -> pathlib.Path:
 
 
 def load() -> ctypes.CDLL:
-    """The kernels' library, built on first call, with argtypes set."""
+    """The kernels' library, built on first call, with each entry's
+    argtypes from SIGNATURES."""
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn = lib.rtnw_render_samples  # K1
-        fn.argtypes = [
-            vp,                      # scene rows (float*)
-            ci, ci, ci, ci, ci,      # n_sph, n_pla, n_trih, n_quad, n_box
-            vp, vp, vp, vp, vp,      # tile-BVH: bounds, meta, real columns,
-            ci, ci,                  # Havel rows and column vectors; nodes,
-                                     # Havel columns
-            vp,                      # frame (21 floats)
-            vp, ci,                  # sample key words (2*S uint32), S
-            vp, ci,                  # pixel ids (int32), n
-            ci, ci,                  # width, height
-            ci, ci, cf, ci,          # bounces, rr_start, tmin, flags
-            vp,                      # out (n, 3) float
-            vp,                      # cudaStream_t
-        ]
-        fn.restype = ci
-        fn = lib.rtnw_path_trace  # K2
-        fn.argtypes = [
-            vp,                      # scene rows (float*)
-            ci, ci, ci, ci, ci,      # n_sph, n_pla, n_trih, n_quad, n_box
-            vp, vp, vp, vp, vp,      # tile-BVH: bounds, meta, real columns,
-            ci, ci,                  # Havel rows and column vectors; nodes,
-                                     # Havel columns
-            vp, vp, vp, vp,          # origin, direction (n, 3), time, pixel ids
-            ctypes.c_uint32, ctypes.c_uint32,  # the sample's key words
-            ci, ci, ci, cf, ci,      # n, bounces, rr_start, tmin, flags
-            vp,                      # out (n, 3) float
-            vp,                      # cudaStream_t
-        ]
-        fn.restype = ci
-        fn = lib.rtnw_bounce_step  # K0
-        fn.argtypes = [
-            vp,                      # scene rows (float*)
-            ci, ci, ci, ci, ci,      # n_sph, n_pla, n_trih, n_quad, n_box
-            vp, vp, vp, vp, vp,      # tile-BVH: bounds, meta, real columns,
-            ci, ci,                  # Havel rows and column vectors; nodes,
-                                     # Havel columns
-            vp, vp,                  # host arrays of the carry's 13 input
-                                     # and 12 output row pointers
-            vp, vp,                  # alive (int32), u4 (n, 4)
-            ci, ci, cf, ci,          # n, do_rr, tmin, flags
-            vp,                      # alive out (int32)
-            vp,                      # cudaStream_t
-        ]
-        fn.restype = ci
-        fn = lib.rtnw_closest_hit  # K3
-        fn.argtypes = [
-            vp, ci, ci, ci,          # rows (float*), n_sph, n_pla, n_tri
-            vp, vp, vp, vp, ci,      # origin, direction, time, alive (u8), n
-            cf,                      # tmin
-            vp, vp,                  # t out (float*), code out (int32*)
-            vp,                      # cudaStream_t
-        ]
-        fn.restype = ci
-        fn = lib.rtnw_bvh_winner  # K4
-        fn.argtypes = [
-            vp, vp, vp, vp,          # origin, direction, alive (u8), tcap
-            ci, vp, vp, vp, ci,      # n_blocks, counts, order, entry, n_leaves
-            vp, vp, vp,              # root, leaf_bounds, leaf_tiles
-            vp, vp, ci,              # leaf_count, aos rows, leaf buffer width
-            cf,                      # tmin
-            vp, vp,                  # t out (float*), code out (int32*)
-            vp,                      # stats out ((n_blocks, 2) int32*) or null
-            vp,                      # cudaStream_t
-        ]
-        fn.restype = ci
-        fn = lib.rtnw_worklist  # the exact work-list build
-        fn.argtypes = [
-            vp, vp, vp, vp,          # origin, direction, alive (u8), tcap
-            ci, vp, ci,              # n_blocks, leaf_bounds, n_leaves
-            cf,                      # tmin
-            vp, vp, vp,              # counts, order (int32*), entry (float*) out
-            vp,                      # cudaStream_t
-        ]
-        fn.restype = ci
-        fn = lib.rtnw_shade  # the sorted wavefront's shading
-        ll = ctypes.c_longlong
-        fn.argtypes = [
-            vp, vp, vp,              # origin, direction (n, 3), time
-            vp, vp, vp,              # throughput, radiance (n, 3), alive (u8)
-            vp, vp, vp, vp,          # K3's t, code; K4's t, code (or null)
-            vp, vp, vp, vp, ll, ll,  # slot, pixel table (or null), key words
-                                     # (int64*); the slot divisors n, m
-            vp, ci, vp, ci, vp, ci,  # spheres (S, 10), planes (P, 7),
-                                     # triangles (T, 10) and their counts
-            vp, vp, vp, vp,          # materials: kind (int64*), albedo,
-                                     # param, emission
-            ci, ci, ci,              # n, bounce, flags
-            vp, vp, vp, vp, vp,      # origin, direction, throughput,
-                                     # radiance, alive out
-            vp,                      # cudaStream_t
-        ]
-        fn.restype = ci
-        # CTAs a SM of each kernel at a launch's shared memory.
-        ip = ctypes.POINTER(ci)
-        fn = lib.rtnw_render_occupancy  # K1, K2, K0
-        fn.argtypes = [ci, ci,             # kernel (0 K1, 1 K2, 2 K0), walk
-                       ci, ci, ci, ci, ci,  # n_sph, n_pla, n_trih, n_quad, n_box
-                       ip, ip]             # CTAs a SM, threads a CTA (out)
-        fn.restype = ci
-        fn = lib.rtnw_closest_hit_occupancy  # K3
-        fn.argtypes = [ci, ci, ci, ip, ip]  # n_sph, n_pla, n_tri; CTAs, threads
-        fn.restype = ci
-        fn = lib.rtnw_bvh_winner_occupancy  # K4
-        fn.argtypes = [ci, ip, ip]          # leaf buffer width; CTAs, threads
-        fn.restype = ci
-        fn = lib.rtnw_worklist_occupancy  # the work-list build
-        fn.argtypes = [ci, ip, ip]          # n_leaves; CTAs, threads
-        fn.restype = ci
-        fn = lib.rtnw_shade_occupancy  # the shade kernel
-        fn.argtypes = [ip, ip]              # CTAs, threads
-        fn.restype = ci
-        lib.rtnw_error_string.argtypes = [ci]
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        lib.rtnw_error_string.argtypes = [ctypes.c_int]
         lib.rtnw_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
@@ -241,11 +226,8 @@ def load() -> ctypes.CDLL:
 
 def occupancy(query: str, *args: int) -> tuple[int, int]:
     """(CTAs resident on one SM, threads a CTA) of a kernel at a launch's
-    shared memory, from its query in the library: `rtnw_render_occupancy`
-    (K1, K2 or K0), `rtnw_closest_hit_occupancy` (K3),
-    `rtnw_bvh_winner_occupancy` (K4), `rtnw_worklist_occupancy` (the
-    work-list build) or `rtnw_shade_occupancy` (the shade kernel), with
-    that launch's size arguments."""
+    shared memory, from its `rtnw_*_occupancy` query in the library (see
+    SIGNATURES), with that launch's size arguments."""
     ctas, threads = ctypes.c_int(0), ctypes.c_int(0)
     err = getattr(load(), query)(*args, ctypes.byref(ctas), ctypes.byref(threads))
     if err != 0:

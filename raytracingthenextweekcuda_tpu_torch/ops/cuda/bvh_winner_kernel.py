@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from raytracingthenextweekcuda_tpu_torch.config import EPSILON, FLT_EPSILON
+from raytracingthenextweekcuda_tpu_torch.ops.cuda import launch
 from raytracingthenextweekcuda_tpu_torch.ops.cuda.intersect_kernel import (
     BIG,
     TYPE_TRIANGLE,
@@ -62,12 +63,6 @@ HAVEL_GEOM_ROWS = 12
 _EXIT_REL = 1.0 + 1e-5
 _EXIT_ABS = 1e-4
 
-# Launches of K4, counted by `winner` where it launches the kernel: the
-# production instantiation, and the one that also writes the stats.
-KERNEL_LAUNCHES = 0
-STATS_LAUNCHES = 0
-# Launches of the work-list kernel, counted by `build_worklist`'s exact pass.
-WORKLIST_LAUNCHES = 0
 # The most leaves the work-list kernel takes: the sort keys of the next
 # power of two in the card's 227 KB of shared memory a block.
 WORKLIST_MAX_LEAVES = 16384
@@ -171,11 +166,8 @@ def build_worklist(origin: torch.Tensor, direction: torch.Tensor,
     if frustum:
         return _build_worklist_frustum(origin, direction, alive, leaf_bounds,
                                        tmin, tcap)
-    if dev.type == "cuda":
-        return _launch_worklist(origin, direction, alive, tcap, leaf_bounds, tmin)
-    if dev.type == "cpu":
-        return worklist_reference(origin, direction, alive, tcap, leaf_bounds, tmin)
-    raise ValueError(f"unsupported device {dev}")
+    return launch.by_device(dev, _launch_worklist, worklist_reference, origin,
+                            direction, alive, tcap, leaf_bounds, tmin)
 
 
 def worklist_reference(origin, direction, alive, tcap, leaf_bounds,
@@ -250,44 +242,29 @@ def _build_worklist_frustum(origin, direction, alive, leaf_bounds, tmin,
 
 def _launch_worklist(origin, direction, alive, tcap, leaf_bounds,
                      tmin: float) -> WorkList:
-    global WORKLIST_LAUNCHES
-    from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
-
     dev = origin.device
     n = origin.shape[0]
     L = leaf_bounds.shape[1]
-    for t, dtype, shape in ((origin, torch.float32, (n, 3)),
-                            (direction, torch.float32, (n, 3)),
-                            (alive, torch.bool, (n,)),
-                            (tcap, torch.float32, (n,)),
-                            (leaf_bounds, torch.float32, (6, L))):
-        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"worklist input {tuple(t.shape)} {t.dtype} on "
-                             f"{t.device}: expected contiguous {shape} {dtype} "
-                             f"on {dev}")
+    launch.check("worklist", dev, ((origin, torch.float32, (n, 3)),
+                                   (direction, torch.float32, (n, 3)),
+                                   (alive, torch.bool, (n,)),
+                                   (tcap, torch.float32, (n,)),
+                                   (leaf_bounds, torch.float32, (6, L))))
     if n % BLOCK:
         raise ValueError(f"worklist input: {n} rays is not a multiple of {BLOCK}")
     if not 1 <= L <= WORKLIST_MAX_LEAVES:
         raise ValueError(f"worklist input: {L} leaves, the kernel takes 1 to "
                          f"{WORKLIST_MAX_LEAVES}")
-    lib = build.load()
     B = n // BLOCK
     counts = torch.empty((B,), dtype=torch.int32, device=dev)
     order = torch.empty((B, L), dtype=torch.int32, device=dev)
     entry = torch.empty((B, L), dtype=torch.float32, device=dev)
     if B == 0:
         return WorkList(counts, order, entry)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rtnw_worklist(
-            origin.data_ptr(), direction.data_ptr(), alive.data_ptr(),
-            tcap.data_ptr(), int(B), leaf_bounds.data_ptr(), int(L), float(tmin),
-            counts.data_ptr(), order.data_ptr(), entry.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"work-list launch failed: "
-                           f"{lib.rtnw_error_string(err).decode()} ({err})")
-    WORKLIST_LAUNCHES += 1
+    launch.call("work-list", "rtnw_worklist", dev, origin.data_ptr(),
+                direction.data_ptr(), alive.data_ptr(), tcap.data_ptr(), int(B),
+                leaf_bounds.data_ptr(), int(L), float(tmin), counts.data_ptr(),
+                order.data_ptr(), entry.data_ptr(), count=("worklist",))
     return WorkList(counts, order, entry)
 
 
@@ -343,40 +320,28 @@ def winner(origin, direction, alive, tcap, wl: WorkList, scene: LeafScene,
     """Dispatch by device: CUDA tensors launch K4, CPU tensors run the
     plain version. Rays are padded to a multiple of BLOCK. Returns (t,
     code), and with `stats` also the blocks' leaf counters (B, 2)."""
-    dev = origin.device
-    if dev.type == "cuda":
-        return _launch(origin, direction, alive, tcap, wl, scene, tmin, stats)
-    if dev.type == "cpu":
-        return winner_reference(origin, direction, alive, tcap, wl, scene, tmin,
-                                stats)
-    raise ValueError(f"unsupported device {dev}")
+    return launch.by_device(origin.device, _launch, winner_reference, origin,
+                            direction, alive, tcap, wl, scene, tmin, stats)
 
 
 def _launch(origin, direction, alive, tcap, wl: WorkList, scene: LeafScene,
             tmin: float, stats: bool = False):
-    global KERNEL_LAUNCHES, STATS_LAUNCHES
-    from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
-
     dev = origin.device
     n = origin.shape[0]
     B, L = n // BLOCK, scene.n_leaves
-    for t, dtype, shape in ((origin, torch.float32, (n, 3)),
-                            (direction, torch.float32, (n, 3)),
-                            (alive, torch.bool, (n,)),
-                            (tcap, torch.float32, (n,)),
-                            (wl.counts, torch.int32, (B,)),
-                            (wl.order, torch.int32, (B, L)),
-                            (wl.entry, torch.float32, (B, L)),
-                            (scene.root, torch.float32, (6,)),
-                            (scene.leaf_bounds, torch.float32, (6, L)),
-                            (scene.leaf_tiles, torch.int32, (L,)),
-                            (scene.leaf_count, torch.int32, (L,)),
-                            (scene.aos, torch.float32,
-                             (L * scene.tile, HAVEL_GEOM_ROWS))):
-        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"K4 input {tuple(t.shape)} {t.dtype} on {t.device}: "
-                             f"expected contiguous {shape} {dtype} on {dev}")
+    launch.check("K4", dev, ((origin, torch.float32, (n, 3)),
+                             (direction, torch.float32, (n, 3)),
+                             (alive, torch.bool, (n,)),
+                             (tcap, torch.float32, (n,)),
+                             (wl.counts, torch.int32, (B,)),
+                             (wl.order, torch.int32, (B, L)),
+                             (wl.entry, torch.float32, (B, L)),
+                             (scene.root, torch.float32, (6,)),
+                             (scene.leaf_bounds, torch.float32, (6, L)),
+                             (scene.leaf_tiles, torch.int32, (L,)),
+                             (scene.leaf_count, torch.int32, (L,)),
+                             (scene.aos, torch.float32,
+                              (L * scene.tile, HAVEL_GEOM_ROWS))))
     if scene.aos.data_ptr() % 16:
         raise ValueError("K4 input aos: not aligned to 16 bytes")
     if not 0 <= scene.max_count <= scene.tile:
@@ -384,30 +349,20 @@ def _launch(origin, direction, alive, tcap, wl: WorkList, scene: LeafScene,
                          f"tiles of {scene.tile}")
     if n % BLOCK:
         raise ValueError(f"K4: {n} rays is not a multiple of {BLOCK}")
-    lib = build.load()
     t_out = torch.empty((n,), dtype=torch.float32, device=dev)
     code = torch.empty((n,), dtype=torch.int32, device=dev)
     st = torch.empty((B, 2), dtype=torch.int32, device=dev) if stats else None
     if n == 0:
         return (t_out, code, st) if stats else (t_out, code)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rtnw_bvh_winner(
-            origin.data_ptr(), direction.data_ptr(), alive.data_ptr(),
-            tcap.data_ptr(), int(B), wl.counts.data_ptr(), wl.order.data_ptr(),
-            wl.entry.data_ptr(), int(L), scene.root.data_ptr(),
-            scene.leaf_bounds.data_ptr(), scene.leaf_tiles.data_ptr(),
-            scene.leaf_count.data_ptr(), scene.aos.data_ptr(),
-            int(scene.max_count), float(tmin), t_out.data_ptr(),
-            code.data_ptr(), st.data_ptr() if stats else None, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"K4 launch failed: {lib.rtnw_error_string(err).decode()} ({err})")
-    if stats:
-        STATS_LAUNCHES += 1
-        return t_out, code, st
-    KERNEL_LAUNCHES += 1
-    return t_out, code
+    launch.call("K4", "rtnw_bvh_winner", dev, origin.data_ptr(), direction.data_ptr(),
+                alive.data_ptr(), tcap.data_ptr(), int(B), wl.counts.data_ptr(),
+                wl.order.data_ptr(), wl.entry.data_ptr(), int(L),
+                scene.root.data_ptr(), scene.leaf_bounds.data_ptr(),
+                scene.leaf_tiles.data_ptr(), scene.leaf_count.data_ptr(),
+                scene.aos.data_ptr(), int(scene.max_count), float(tmin),
+                t_out.data_ptr(), code.data_ptr(), st.data_ptr() if stats else None,
+                count=("K4-stats",) if stats else ("K4",))
+    return (t_out, code, st) if stats else (t_out, code)
 
 
 def _slab(lb, l, o, inv):
@@ -523,8 +478,7 @@ def winner_reference(origin, direction, alive, tcap, wl: WorkList,
     return t_out, code_out
 
 
-__all__ = ["BLOCK", "FRUSTUM_LEAF_THRESHOLD", "KERNEL_LAUNCHES", "LeafScene",
-           "STATS_LAUNCHES", "WORKLIST_LAUNCHES", "WORKLIST_MAX_LEAVES",
+__all__ = ["BLOCK", "FRUSTUM_LEAF_THRESHOLD", "LeafScene", "WORKLIST_MAX_LEAVES",
            "WorkList", "build_worklist", "intersect_packed_bvh", "leaf_scene",
            "real_columns", "use_frustum_worklist", "winner",
            "winner_inputs", "winner_reference", "worklist_reference"]

@@ -24,6 +24,7 @@ import torch
 
 from raytracingthenextweekcuda_tpu_torch.config import EPSILON, FLT_EPSILON
 from raytracingthenextweekcuda_tpu_torch.ops import fmath
+from raytracingthenextweekcuda_tpu_torch.ops.cuda import launch
 
 BIG = 3.0e38
 
@@ -33,9 +34,6 @@ TYPE_TRIANGLE = 3
 
 # Base geometry rows K3 reads per type (spheres, planes, triangles).
 K3_ROWS = (10, 13, 9)
-
-# Launches of K3, counted by `intersect_packed` where it launches the kernel.
-KERNEL_LAUNCHES = 0
 
 # Primitive columns the plain version tests per vectorized step.
 _PRIM_CHUNK = 256
@@ -180,45 +178,27 @@ def intersect_packed(rays, scene: AnalyticRows, tmin: float = EPSILON,
     n = rays.count
     if alive is None:
         alive = torch.ones((n,), dtype=torch.bool, device=dev)
-    args = (rays.origin, rays.direction, rays.time, alive, scene, float(tmin))
-    if dev.type == "cuda":
-        return _launch(*args)
-    if dev.type == "cpu":
-        return closest_hit_reference(*args)
-    raise ValueError(f"unsupported device {dev}")
+    return launch.by_device(dev, _launch, closest_hit_reference, rays.origin,
+                            rays.direction, rays.time, alive, scene, float(tmin))
 
 
 def _launch(origin, direction, time, alive, scene: AnalyticRows, tmin):
-    global KERNEL_LAUNCHES
-    from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
-
     dev = origin.device
     n = origin.shape[0]
     n_floats = sum(r * c for r, c in zip(K3_ROWS, scene.counts))
-    for t, dtype, shape in ((origin, torch.float32, (n, 3)),
-                            (direction, torch.float32, (n, 3)),
-                            (time, torch.float32, (n,)),
-                            (alive, torch.bool, (n,)),
-                            (scene.rows, torch.float32, (n_floats,))):
-        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"K3 input {tuple(t.shape)} {t.dtype} on {t.device}: "
-                             f"expected contiguous {shape} {dtype} on {dev}")
-    lib = build.load()
+    launch.check("K3", dev, ((origin, torch.float32, (n, 3)),
+                             (direction, torch.float32, (n, 3)),
+                             (time, torch.float32, (n,)),
+                             (alive, torch.bool, (n,)),
+                             (scene.rows, torch.float32, (n_floats,))))
     t_out = torch.empty((n,), dtype=torch.float32, device=dev)
     code = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return t_out, code
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rtnw_closest_hit(
-            scene.rows.data_ptr(), *scene.counts, origin.data_ptr(),
-            direction.data_ptr(), time.data_ptr(), alive.data_ptr(), int(n),
-            float(tmin), t_out.data_ptr(), code.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"K3 launch failed: {lib.rtnw_error_string(err).decode()} ({err})")
-    KERNEL_LAUNCHES += 1
+    launch.call("K3", "rtnw_closest_hit", dev, scene.rows.data_ptr(), *scene.counts,
+                origin.data_ptr(), direction.data_ptr(), time.data_ptr(),
+                alive.data_ptr(), int(n), float(tmin), t_out.data_ptr(),
+                code.data_ptr(), count=("K3",))
     return t_out, code
 
 

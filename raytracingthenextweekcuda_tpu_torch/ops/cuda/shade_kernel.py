@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from raytracingthenextweekcuda_tpu_torch.ops.cuda import launch
 from raytracingthenextweekcuda_tpu_torch.ops.fused import (
     DeviceScene,
     Winners,
@@ -32,8 +33,6 @@ from raytracingthenextweekcuda_tpu_torch.ops.materials import MaterialRows
 from raytracingthenextweekcuda_tpu_torch.ops.rays import Rays
 from raytracingthenextweekcuda_tpu_torch.ops.rng import SlotCtx
 
-# Launches of the shade kernel, counted by `shade` where it launches it.
-SHADE_LAUNCHES = 0
 # The kernel's flags: the sky on a miss, Russian roulette at this bounce;
 # bits 8-15 the material kinds the scene uses.
 FLAG_SKY = 1
@@ -56,13 +55,8 @@ def shade(ds: DeviceScene, mats: MaterialRows, used_kinds, cfg, state,
     throughput (N, 3), radiance (N, 3), alive (N,) bool), whose winners are
     `win` and whose rays sit at wavefront slots `slot` (N,) int64 of `ctx`.
     CUDA tensors launch the shade kernel, CPU tensors run the plain version."""
-    dev = state[0].origin.device
-    if dev.type == "cuda":
-        return _launch(ds, mats, used_kinds, cfg, state, win, ctx, slot, bounce_idx)
-    if dev.type == "cpu":
-        return shade_reference(ds, mats, used_kinds, cfg, state, win, ctx, slot,
-                               bounce_idx)
-    raise ValueError(f"unsupported device {dev}")
+    return launch.by_device(state[0].origin.device, _launch, shade_reference, ds,
+                            mats, used_kinds, cfg, state, win, ctx, slot, bounce_idx)
 
 
 def shade_reference(ds: DeviceScene, mats: MaterialRows, used_kinds, cfg, state,
@@ -80,40 +74,32 @@ def shade_reference(ds: DeviceScene, mats: MaterialRows, used_kinds, cfg, state,
 
 def _launch(ds: DeviceScene, mats: MaterialRows, used_kinds, cfg, state,
             win: Winners, ctx: SlotCtx, slot, bounce_idx: int):
-    global SHADE_LAUNCHES
-    from raytracingthenextweekcuda_tpu_torch.ops.cuda import build
-
     rays, throughput, radiance, alive = state
     dev = rays.origin.device
     n = rays.count
     i64, f32, i32 = torch.int64, torch.float32, torch.int32
-    checks = [(rays.origin, f32, (n, 3)), (rays.direction, f32, (n, 3)),
-              (rays.time, f32, (n,)), (throughput, f32, (n, 3)),
-              (radiance, f32, (n, 3)), (alive, torch.bool, (n,)),
-              (win.t, f32, (n,)), (win.code, i32, (n,)), (slot, i64, (n,)),
-              (ctx.base0, i64, (ctx.base0.shape[0],)),
-              (ctx.base1, i64, (ctx.base0.shape[0],)),
-              (ds.spheres, f32, (ds.spheres.shape[0], 10)),
-              (ds.planes, f32, (ds.planes.shape[0], 7)),
-              (ds.triangles, f32, (ds.triangles.shape[0], 10)),
-              (mats.kind, i64, (mats.kind.shape[0],)),
-              (mats.albedo, f32, (mats.kind.shape[0], 3)),
-              (mats.param, f32, (mats.kind.shape[0],)),
-              (mats.emission, f32, (mats.kind.shape[0], 3))]
+    specs = [(rays.origin, f32, (n, 3)), (rays.direction, f32, (n, 3)),
+             (rays.time, f32, (n,)), (throughput, f32, (n, 3)),
+             (radiance, f32, (n, 3)), (alive, torch.bool, (n,)),
+             (win.t, f32, (n,)), (win.code, i32, (n,)), (slot, i64, (n,)),
+             (ctx.base0, i64, (ctx.base0.shape[0],)),
+             (ctx.base1, i64, (ctx.base0.shape[0],)),
+             (ds.spheres, f32, (ds.spheres.shape[0], 10)),
+             (ds.planes, f32, (ds.planes.shape[0], 7)),
+             (ds.triangles, f32, (ds.triangles.shape[0], 10)),
+             (mats.kind, i64, (mats.kind.shape[0],)),
+             (mats.albedo, f32, (mats.kind.shape[0], 3)),
+             (mats.param, f32, (mats.kind.shape[0],)),
+             (mats.emission, f32, (mats.kind.shape[0], 3))]
     if (win.t_m is None) != (win.c_m is None):
         raise ValueError("shade input: K4's t and code, both or neither")
     if win.t_m is not None:
-        checks += [(win.t_m, f32, (n,)), (win.c_m, i32, (n,))]
+        specs += [(win.t_m, f32, (n,)), (win.c_m, i32, (n,))]
     if ctx.pixel is not None:
-        checks.append((ctx.pixel, i64, (ctx.pixel.shape[0],)))
-    for t, dtype, shape in checks:
-        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"shade input {tuple(t.shape)} {t.dtype} on {t.device}: "
-                             f"expected contiguous {shape} {dtype} on {dev}")
+        specs.append((ctx.pixel, i64, (ctx.pixel.shape[0],)))
+    launch.check("shade", dev, specs)
     if ctx.n < 1 or ctx.m < 1:
         raise ValueError(f"shade input: slot divisors {ctx.n}, {ctx.m} below 1")
-    lib = build.load()
     origin, direction, tp, rad = (torch.empty((n, 3), dtype=f32, device=dev)
                                   for _ in range(4))
     alive_out = torch.empty((n,), dtype=torch.bool, device=dev)
@@ -123,26 +109,19 @@ def _launch(ds: DeviceScene, mats: MaterialRows, used_kinds, cfg, state,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rtnw_shade(
-            rays.origin.data_ptr(), rays.direction.data_ptr(), rays.time.data_ptr(),
-            throughput.data_ptr(), radiance.data_ptr(), alive.data_ptr(),
-            win.t.data_ptr(), win.code.data_ptr(), ptr(win.t_m), ptr(win.c_m),
-            slot.data_ptr(), ptr(ctx.pixel), ctx.base0.data_ptr(),
-            ctx.base1.data_ptr(), int(ctx.n), int(ctx.m),
-            ds.spheres.data_ptr(), int(ds.spheres.shape[0]), ds.planes.data_ptr(),
-            int(ds.planes.shape[0]), ds.triangles.data_ptr(),
-            int(ds.triangles.shape[0]), mats.kind.data_ptr(), mats.albedo.data_ptr(),
-            mats.param.data_ptr(), mats.emission.data_ptr(), int(n),
-            int(bounce_idx), flags(cfg, used_kinds, bounce_idx),
-            origin.data_ptr(), direction.data_ptr(), tp.data_ptr(), rad.data_ptr(),
-            alive_out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"shade kernel launch failed: "
-                           f"{lib.rtnw_error_string(err).decode()} ({err})")
-    SHADE_LAUNCHES += 1
+    launch.call(
+        "shade kernel", "rtnw_shade", dev,
+        rays.origin.data_ptr(), rays.direction.data_ptr(), rays.time.data_ptr(),
+        throughput.data_ptr(), radiance.data_ptr(), alive.data_ptr(),
+        win.t.data_ptr(), win.code.data_ptr(), ptr(win.t_m), ptr(win.c_m),
+        slot.data_ptr(), ptr(ctx.pixel), ctx.base0.data_ptr(), ctx.base1.data_ptr(),
+        int(ctx.n), int(ctx.m), ds.spheres.data_ptr(), int(ds.spheres.shape[0]),
+        ds.planes.data_ptr(), int(ds.planes.shape[0]), ds.triangles.data_ptr(),
+        int(ds.triangles.shape[0]), mats.kind.data_ptr(), mats.albedo.data_ptr(),
+        mats.param.data_ptr(), mats.emission.data_ptr(), int(n), int(bounce_idx),
+        flags(cfg, used_kinds, bounce_idx), origin.data_ptr(), direction.data_ptr(),
+        tp.data_ptr(), rad.data_ptr(), alive_out.data_ptr(), count=("shade",))
     return Rays(origin, direction, rays.time), tp, rad, alive_out
 
 
-__all__ = ["SHADE_LAUNCHES", "flags", "shade", "shade_reference"]
+__all__ = ["flags", "shade", "shade_reference"]

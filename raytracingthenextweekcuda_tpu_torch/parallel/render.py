@@ -18,10 +18,8 @@ from raytracingthenextweekcuda_tpu_torch.models import camera as camera_mod
 from raytracingthenextweekcuda_tpu_torch.models import integrator
 from raytracingthenextweekcuda_tpu_torch.models.film import Film
 from raytracingthenextweekcuda_tpu_torch.ops import threefry
-from raytracingthenextweekcuda_tpu_torch.ops.cuda.bounce_kernel import (
-    device_or_raise,
-    render_samples,
-)
+from raytracingthenextweekcuda_tpu_torch.ops.cuda.bounce_kernel import render_samples
+from raytracingthenextweekcuda_tpu_torch.ops.cuda.launch import device_or_raise
 from raytracingthenextweekcuda_tpu_torch.parallel.mesh import TileMesh, tile_sharding
 
 

@@ -45,6 +45,7 @@ from raytracingthenextweekcuda_tpu_torch.models import presets as tpresets
 from raytracingthenextweekcuda_tpu_torch.models.scene import finalize
 from raytracingthenextweekcuda_tpu_torch.ops import threefry
 from raytracingthenextweekcuda_tpu_torch.ops.cuda import bounce_kernel as bk
+from raytracingthenextweekcuda_tpu_torch.ops.cuda.launch import LAUNCHES
 
 PRESETS = {
     "sphere_plane": "diffuse_sphere_plane",
@@ -135,10 +136,10 @@ def test_cpu_tensors_take_the_plain_version():
     cfg = RenderConfig(width=8, height=8, spp=1, bounces=2)
     frame = tcam.derive(camera, cfg.aspect_ratio)
     words = threefry.split(threefry.key(0), 1)
-    before = bk.KERNEL_LAUNCHES
+    before = LAUNCHES["K1"]
     a = bk.render_samples(scene.packed, frame, words, cfg, device="cpu")
     b = bk.render_samples_reference(scene.packed, frame, words, cfg)
-    assert bk.KERNEL_LAUNCHES == before
+    assert LAUNCHES["K1"] == before
     np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
@@ -217,7 +218,7 @@ def test_launch_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(build, "_LIB", None)
     monkeypatch.delenv("CUDA_HOME", raising=False)
-    before = bk.KERNEL_LAUNCHES
+    before = LAUNCHES["K1"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         bk._launch(_small_inputs())
-    assert bk.KERNEL_LAUNCHES == before
+    assert LAUNCHES["K1"] == before

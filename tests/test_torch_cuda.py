@@ -34,6 +34,7 @@ from raytracingthenextweekcuda_tpu_torch.models import presets as tpresets
 from raytracingthenextweekcuda_tpu_torch.models.scene import finalize
 from raytracingthenextweekcuda_tpu_torch.ops import rng, threefry
 from raytracingthenextweekcuda_tpu_torch.ops.cuda import bounce_kernel as bk
+from raytracingthenextweekcuda_tpu_torch.ops.cuda.launch import LAUNCHES
 from raytracingthenextweekcuda_tpu_torch.ops.rays import Rays
 from test_torch_walk import inside_rays, tie_inputs
 
@@ -57,10 +58,10 @@ def test_k1_matches_plain_on_card(preset, cuda_device):
     inp = bk.render_inputs(scene.packed, tcam.derive(camera, 1.0),
                            threefry.split(threefry.key(7), 4), cfg,
                            device=cuda_device)
-    before = bk.KERNEL_LAUNCHES
+    before = LAUNCHES["K1"]
     k1 = bk.render_kernel(inp).cpu().numpy()
     plain = bk.render_reference(inp).cpu().numpy()
-    assert bk.KERNEL_LAUNCHES == before + 1
+    assert LAUNCHES["K1"] == before + 1
     if preset == "smallpt_spheres":
         assert (np.abs(k1 - plain) > 0.2).mean() < 0.05
     else:
@@ -73,9 +74,9 @@ def test_render_on_card_matches_cpu(cuda_device):
     scene = finalize(scene)
     cfg = RenderConfig(width=24, height=16, spp=4, bounces=6, spp_per_pass=2,
                        russian_roulette=True, rr_start_bounce=2)
-    before = bk.KERNEL_LAUNCHES
+    before = LAUNCHES["K1"]
     card = integrator.render(scene, camera, cfg, device=cuda_device)
-    assert bk.KERNEL_LAUNCHES == before + 2  # one launch per pass
+    assert LAUNCHES["K1"] == before + 2  # one launch per pass
     cpu = integrator.render(scene, camera, cfg, device="cpu")
     np.testing.assert_allclose(card.accum.cpu().numpy(), cpu.accum.numpy(),
                                rtol=1e-4, atol=1e-4)
@@ -118,33 +119,32 @@ def test_k3_k4_match_plain_on_card(cuda_device, bounces, mesh_scene):
     from raytracingthenextweekcuda_tpu_torch.ops.fused import mesh_query
 
     ds, rays, alive = _mesh_wavefront(*mesh_scene, cuda_device, bounces)
-    before = (k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES)
+    before = (LAUNCHES["K3"], LAUNCHES["K4"])
     t, code = k3.intersect_packed(rays, ds.analytic, EPSILON, alive=alive)
     t_p, code_p = k3.closest_hit_reference(rays.origin, rays.direction,
                                            rays.time, alive, ds.analytic, EPSILON)
     assert torch.equal(code, code_p) and torch.equal(t, t_p)
     alive_mesh, t_cap = mesh_query(ds.leaves, rays, EPSILON, alive, t, code)
-    before_wl = k4.WORKLIST_LAUNCHES
+    before_wl = LAUNCHES["worklist"]
     args = k4.winner_inputs(rays, ds.leaves, EPSILON, alive_mesh, t_cap)
-    assert k4.WORKLIST_LAUNCHES == before_wl + 1
+    assert LAUNCHES["worklist"] == before_wl + 1
     t4, c4 = k4.winner(*args, ds.leaves, EPSILON)
     t4p, c4p = k4.winner_reference(*args, ds.leaves, EPSILON)
     assert torch.equal(c4, c4p) and torch.equal(t4, t4p)
     assert int((c4 >= 0).sum()) > 0
-    assert (k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert (LAUNCHES["K3"], LAUNCHES["K4"]) == (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.cuda
 def test_mesh_render_on_card_matches_cpu(cuda_device, mesh_scene):
-    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
 
     scene, camera = mesh_scene
     cfg = RenderConfig(width=24, height=16, spp=4, bounces=5, spp_per_pass=2,
                        russian_roulette=True, rr_start_bounce=2)
-    before = (k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES)
+    before = (LAUNCHES["K3"], LAUNCHES["K4"])
     card = integrator.render(scene, camera, cfg, device=cuda_device)
-    assert k3.KERNEL_LAUNCHES > before[0] and k4.KERNEL_LAUNCHES > before[1]
+    assert LAUNCHES["K3"] > before[0] and LAUNCHES["K4"] > before[1]
     cpu = integrator.render(scene, camera, cfg, device="cpu")
     np.testing.assert_allclose(card.accum.cpu().numpy(), cpu.accum.numpy(),
                                rtol=1e-4, atol=1e-4)
@@ -166,10 +166,10 @@ def _primary(preset, size, device, seed=7):
 def test_k2_matches_plain_on_card(preset, cuda_device):
     scene, rays, ctx = _primary(preset, 64, cuda_device)
     cfg = RenderConfig(width=64, height=64, spp=1, bounces=8)
-    before = bk.PATH_LAUNCHES
+    before = LAUNCHES["K2"]
     k2 = bk.path_trace(scene.packed, rays, ctx, cfg).cpu().numpy()
     plain = bk.path_trace_reference(scene.packed, rays, ctx, cfg).cpu().numpy()
-    assert bk.PATH_LAUNCHES == before + 1
+    assert LAUNCHES["K2"] == before + 1
     if preset == "smallpt_spheres":
         assert (np.abs(k2 - plain) > 0.2).mean() < 0.05
     else:
@@ -189,10 +189,10 @@ def test_k0_matches_plain_on_card(do_rr, cuda_device):
         scene.packed, state, rng.bounce_uniforms(ctx.pixel_id, ctx.base0, ctx.base1, 0),
         0, cfg)
     u4 = rng.bounce_uniforms(ctx.pixel_id, ctx.base0, ctx.base1, 1)
-    before = bk.BOUNCE_LAUNCHES
+    before = LAUNCHES["K0"]
     k0 = bk.bounce_step(scene.packed, state, u4, do_rr, cfg)
     plain = bk.bounce_step_reference(scene.packed, state, u4, do_rr, cfg)
-    assert bk.BOUNCE_LAUNCHES == before + 1
+    assert LAUNCHES["K0"] == before + 1
     assert torch.equal(k0[7], plain[7])
     for k in range(14):
         np.testing.assert_allclose(k0[k].cpu().numpy(), plain[k].cpu().numpy(),
@@ -228,10 +228,10 @@ def test_k0_matches_plain_on_card_by_size(size, do_rr, cuda_device):
     kill = torch.from_numpy(gen.random(n) < 0.25).to(cuda_device)
     state = (*state[:7], torch.where(kill, 0, state[7]), *state[8:])
     u4 = rng.bounce_uniforms(ctx.pixel_id, ctx.base0, ctx.base1, 1)
-    before = bk.BOUNCE_LAUNCHES
+    before = LAUNCHES["K0"]
     k0 = bk.bounce_step(scene.packed, state, u4, do_rr, cfg)
     plain = bk.bounce_step_reference(scene.packed, state, u4, do_rr, cfg)
-    assert bk.BOUNCE_LAUNCHES == before + 1
+    assert LAUNCHES["K0"] == before + 1
     for k in range(14):
         assert torch.equal(k0[k], plain[k]), f"row {k}"
     dead = state[7] == 0
@@ -280,7 +280,7 @@ def test_bvh_kernels_match_plain_on_card(stand_in, cuda_device):
                        russian_roulette=True, rr_start_bounce=3)
     frame = tcam.derive(camera, cfg.aspect_ratio)
     words = threefry.split(threefry.key(3), 2)
-    before = (bk.KERNEL_BVH_LAUNCHES, bk.PATH_BVH_LAUNCHES, bk.BOUNCE_BVH_LAUNCHES)
+    before = (LAUNCHES["K1-BVH"], LAUNCHES["K2-BVH"], LAUNCHES["K0-BVH"])
     inp = bk.render_inputs(scene.packed, frame, words, cfg, device=cuda_device)
     np.testing.assert_allclose(bk.render_kernel(inp).cpu().numpy(),
                                bk.render_reference(inp).cpu().numpy(),
@@ -300,8 +300,8 @@ def test_bvh_kernels_match_plain_on_card(stand_in, cuda_device):
     for k in range(14):
         np.testing.assert_allclose(k0[k].cpu().numpy(), plain[k].cpu().numpy(),
                                    rtol=1e-4, atol=1e-4, err_msg=f"row {k}")
-    assert (bk.KERNEL_BVH_LAUNCHES, bk.PATH_BVH_LAUNCHES,
-            bk.BOUNCE_BVH_LAUNCHES) == tuple(b + 1 for b in before)
+    assert (LAUNCHES["K1-BVH"], LAUNCHES["K2-BVH"],
+            LAUNCHES["K0-BVH"]) == tuple(b + 1 for b in before)
 
 
 @pytest.mark.cuda
@@ -311,9 +311,9 @@ def test_forced_megastep_on_card_matches_cpu(cuda_device, mesh_scene, monkeypatc
     scene, camera = mesh_scene
     monkeypatch.setattr(integrator, "_sorted_eligible", lambda *_: False)
     cfg = RenderConfig(width=24, height=16, spp=4, bounces=5, spp_per_pass=2)
-    before = bk.KERNEL_BVH_LAUNCHES
+    before = LAUNCHES["K1-BVH"]
     card = integrator.render(scene, camera, cfg, device=cuda_device)
-    assert bk.KERNEL_BVH_LAUNCHES == before + 2
+    assert LAUNCHES["K1-BVH"] == before + 2
     cpu = integrator.render(scene, camera, cfg, device="cpu")
     np.testing.assert_allclose(card.accum.cpu().numpy(), cpu.accum.numpy(),
                                rtol=1e-4, atol=1e-4)
@@ -389,9 +389,9 @@ def _k4_case(tri, o, d, alive, device):
     rays = Rays(torch.from_numpy(o).to(device), torch.from_numpy(d).to(device),
                 torch.zeros(o.shape[0], device=device))
     args = k4.winner_inputs(rays, leaves, EPSILON, torch.from_numpy(alive).to(device))
-    before = k4.KERNEL_LAUNCHES
+    before = LAUNCHES["K4"]
     out = k4.winner(*args, leaves, EPSILON)
-    assert k4.KERNEL_LAUNCHES == before + 1
+    assert LAUNCHES["K4"] == before + 1
     return out, k4.winner_reference(*args, leaves, EPSILON), args, leaves
 
 
@@ -470,9 +470,9 @@ def test_k4_stats_match_plain_on_card(cuda_device):
     o, d = _down_rays(128 * 32, seed=5, tilt=0.5)
     alive = np.random.default_rng(6).random(o.shape[0]) > 0.2
     (t, c), _, args, leaves = _k4_case(tri, o, d, alive, cuda_device)
-    before = (k4.KERNEL_LAUNCHES, k4.STATS_LAUNCHES)
+    before = (LAUNCHES["K4"], LAUNCHES["K4-stats"])
     t_s, c_s, st = k4.winner(*args, leaves, EPSILON, stats=True)
-    assert (k4.KERNEL_LAUNCHES, k4.STATS_LAUNCHES) == (before[0], before[1] + 1)
+    assert (LAUNCHES["K4"], LAUNCHES["K4-stats"]) == (before[0], before[1] + 1)
     _, _, st_p = k4.winner_reference(*args, leaves, EPSILON, stats=True)
     assert torch.equal(t_s, t) and torch.equal(c_s, c)
     assert st.dtype == torch.int32 and st.shape == (args[4].counts.shape[0], 2)
@@ -538,9 +538,9 @@ def test_worklist_kernel_matches_plain_on_card(case, cuda_device, mesh_scene):
         o, d, a, tcap, lb = _leaf_boxes(n_leaves, 128 * 32, n_leaves, cuda_device,
                                         twins=case == "twin_leaves")
     cap = None if wavefront and not case.endswith("tcap") else tcap
-    before = k4.WORKLIST_LAUNCHES
+    before = LAUNCHES["worklist"]
     wl = k4.build_worklist(o, d, a, lb, EPSILON, tcap=cap)
-    assert k4.WORKLIST_LAUNCHES == before + 1
+    assert LAUNCHES["worklist"] == before + 1
     plain = k4.worklist_reference(o, d, a, tcap if cap is not None else
                                   torch.full_like(tcap, k3.BIG), lb, EPSILON)
     assert wl.order.shape == plain.order.shape == (o.shape[0] // 128, lb.shape[1])
@@ -573,9 +573,9 @@ def test_k1_uneven_paths_match_plain_on_card(use_bvh, cuda_device):
                            threefry.split(threefry.key(9), 4), cfg,
                            device=cuda_device)
     assert (inp.trih is not None) == use_bvh
-    before = bk.KERNEL_BVH_LAUNCHES
+    before = LAUNCHES["K1-BVH"]
     k1 = bk.render_kernel(inp).cpu().numpy()
-    assert bk.KERNEL_BVH_LAUNCHES == before + use_bvh
+    assert LAUNCHES["K1-BVH"] == before + use_bvh
     np.testing.assert_array_equal(k1, bk.render_reference(inp).cpu().numpy())
 
 
@@ -595,9 +595,9 @@ def test_k1_matches_plain_on_rtiow_final(cuda_device):
                            pixel_ids=band, device=cuda_device)
     assert inp.trih is None and inp.counts == (488, 0, 0, 0, 0)
     assert int((scene.spheres.center1 != scene.spheres.center0).any(axis=1).sum()) == 385
-    before = bk.KERNEL_LAUNCHES
+    before = LAUNCHES["K1"]
     k1 = bk.render_kernel(inp).cpu().numpy()
-    assert bk.KERNEL_LAUNCHES == before + 1
+    assert LAUNCHES["K1"] == before + 1
     np.testing.assert_array_equal(k1, bk.render_reference(inp).cpu().numpy())
 
 
@@ -625,7 +625,7 @@ def test_walk_on_partial_warps_matches_plain(stand_in, cuda_device):
     words = threefry.split(threefry.key(5), 3)
     gen = np.random.default_rng(2)
     pid = gen.choice(64 * 64, 1000, replace=False)
-    before = (bk.KERNEL_BVH_LAUNCHES, bk.PATH_BVH_LAUNCHES, bk.BOUNCE_BVH_LAUNCHES)
+    before = (LAUNCHES["K1-BVH"], LAUNCHES["K2-BVH"], LAUNCHES["K0-BVH"])
     inp = bk.render_inputs(scene.packed, frame, words, cfg, pixel_ids=pid,
                            device=cuda_device)
     assert torch.equal(bk.render_kernel(inp), bk.render_reference(inp))
@@ -644,8 +644,8 @@ def test_walk_on_partial_warps_matches_plain(stand_in, cuda_device):
     assert bool(state[7].any()) and not bool(state[7].all())
     for k in range(14):
         assert torch.equal(k0[k], plain[k]), f"row {k}"
-    assert (bk.KERNEL_BVH_LAUNCHES, bk.PATH_BVH_LAUNCHES,
-            bk.BOUNCE_BVH_LAUNCHES) == tuple(b + 1 for b in before)
+    assert (LAUNCHES["K1-BVH"], LAUNCHES["K2-BVH"],
+            LAUNCHES["K0-BVH"]) == tuple(b + 1 for b in before)
 
 
 @pytest.mark.cuda
@@ -705,9 +705,9 @@ def test_k2_regeneration_matches_plain_on_card(n, use_bvh, cuda_device):
     rays, ctx = _head(*tcam.generate_rays(
         tcam.derive(camera, 1.0), threefry.split(threefry.key(9), 1)[0], 512, 512,
         device=cuda_device), n)
-    before = (bk.PATH_LAUNCHES, bk.PATH_BVH_LAUNCHES)
+    before = (LAUNCHES["K2"], LAUNCHES["K2-BVH"])
     out = bk.path_trace(scene.packed, rays, ctx, cfg)
-    assert (bk.PATH_LAUNCHES, bk.PATH_BVH_LAUNCHES) == (before[0] + 1,
+    assert (LAUNCHES["K2"], LAUNCHES["K2-BVH"]) == (before[0] + 1,
                                                         before[1] + use_bvh)
     assert torch.equal(out, bk.path_trace_reference(scene.packed, rays, ctx, cfg))
     assert float(out.sum()) > 0.0
@@ -739,9 +739,9 @@ def test_scene_file_on_card_matches_cpu(cuda_device, tmp_path):
     scene, camera = load_scene(path)
     scene = finalize(scene)
     cfg = RenderConfig(width=64, height=64, spp=4, bounces=10)
-    before = bk.KERNEL_LAUNCHES
+    before = LAUNCHES["K1"]
     card = integrator.render(scene, camera, cfg, device=cuda_device).accum.cpu().numpy()
-    assert bk.KERNEL_LAUNCHES == before + 1
+    assert LAUNCHES["K1"] == before + 1
     cpu = integrator.render(scene, camera, cfg, device="cpu").accum.numpy()
     assert (~np.isclose(card, cpu, rtol=1e-4, atol=1e-4)).mean() <= 1e-4
     pngs = []
@@ -906,9 +906,9 @@ def test_shade_kernel_matches_plain_on_card(bounce, rr, sky, cuda_device,
     dead = int((~state[3]).sum())
     assert dead > 0 and int((win.c_m >= 0).sum()) > 0
     used = scene.packed.used_kinds
-    before = sk.SHADE_LAUNCHES
+    before = LAUNCHES["shade"]
     out = sk.shade(ds, mats, used, cfg, state, win, ctx, slot, bounce)
-    assert sk.SHADE_LAUNCHES == before + 1
+    assert LAUNCHES["shade"] == before + 1
     plain = sk.shade_reference(ds, mats, used, cfg, state, win, ctx, slot, bounce)
     _bit_equal(f"bounce {bounce}", out, plain)
     assert bool(out[3].any()) and not bool(out[3][~state[3]].any())
@@ -942,18 +942,17 @@ def test_sorted_render_with_shade_kernel_matches_plain(which, cuda_device,
                                                        stress_scene, monkeypatch):
     """A whole `_trace_sorted` image: with the shade kernel against the
     torch body on the card, bit for bit, one launch a bounce."""
-    from raytracingthenextweekcuda_tpu_torch.ops.cuda import shade_kernel as sk
 
     scene, camera = stress_scene if which == "stress" else _all_kinds_scene()
     cfg = RenderConfig(width=64, height=48, spp=4, bounces=6, spp_per_pass=2,
                        russian_roulette=True, rr_start_bounce=2)
-    before = sk.SHADE_LAUNCHES
+    before = LAUNCHES["shade"]
     card = integrator.render(scene, camera, cfg, device=cuda_device)
-    launches = sk.SHADE_LAUNCHES - before
+    launches = LAUNCHES["shade"] - before
     assert 2 <= launches <= 2 * cfg.bounces
     monkeypatch.setattr(integrator, "_kernel_shades", lambda *args: False)
     plain = integrator.render(scene, camera, cfg, device=cuda_device)
-    assert sk.SHADE_LAUNCHES == before + launches
+    assert LAUNCHES["shade"] == before + launches
     assert torch.equal(card.accum.view(torch.int32), plain.accum.view(torch.int32))
     assert float(card.accum.sum()) > 0
 
@@ -966,7 +965,6 @@ def test_fit_mesh_on_card_takes_the_torch_body_for_its_gradient(cuda_device,
     (no shade launch), and a few steps give the same losses with the shade
     kernel in the no-grad renders as with the torch body everywhere."""
     from raytracingthenextweekcuda_tpu_torch.apps import fit
-    from raytracingthenextweekcuda_tpu_torch.ops.cuda import shade_kernel as sk
 
     size, spp = 24, 2
     cfg = fit.fit_config(size, size, spp)
@@ -976,19 +974,19 @@ def test_fit_mesh_on_card_takes_the_torch_body_for_its_gradient(cuda_device,
         target = integrator.render_gbuffer(anchor, fit.fit_camera(), key, cfg, spp,
                                            device=cuda_device)
     scale = torch.tensor([0.02, -0.03, 0.01], device=cuda_device, requires_grad=True)
-    before = sk.SHADE_LAUNCHES
+    before = LAUNCHES["shade"]
     fit.mesh_fit_loss(scale, anchor, torch.zeros(3, device=cuda_device), target,
                       fit.fit_camera(), key, cfg, spp, cuda_device).backward()
-    assert sk.SHADE_LAUNCHES == before
+    assert LAUNCHES["shade"] == before
     assert bool(torch.isfinite(scale.grad).all()) and float(scale.grad.abs().max()) > 0
     runs = {}
     for kernel in (True, False):
         if not kernel:
             monkeypatch.setattr(integrator, "_kernel_shades", lambda *args: False)
-        losses, before = [], sk.SHADE_LAUNCHES
+        losses, before = [], LAUNCHES["shade"]
         fit.run_fit_mesh(steps=3, out=str(tmp_path / f"fit_{kernel}.png"), width=size,
                          height=size, spp=spp, refresh=2, device=cuda_device,
                          verbose=False, losses=losses)
-        runs[kernel] = (losses, sk.SHADE_LAUNCHES - before)
+        runs[kernel] = (losses, LAUNCHES["shade"] - before)
     assert runs[True][0] == runs[False][0] and len(runs[True][0]) == 3
     assert runs[True][1] > 0 and runs[False][1] == 0

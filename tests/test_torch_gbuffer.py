@@ -24,7 +24,7 @@ from raytracingthenextweekcuda_tpu_torch.models import camera as tcam
 from raytracingthenextweekcuda_tpu_torch.models import integrator, presets
 from raytracingthenextweekcuda_tpu_torch.models.scene import finalize
 from raytracingthenextweekcuda_tpu_torch.ops import threefry
-from raytracingthenextweekcuda_tpu_torch.ops.cuda import bounce_kernel as bk
+from raytracingthenextweekcuda_tpu_torch.ops.cuda.launch import LAUNCHES
 
 AOVS = ("radiance", "depth", "normal", "albedo", "hit_mask")
 
@@ -42,10 +42,10 @@ def test_gbuffer_matches_reference(preset, packed, size, fused):
         jscene, tscene = jfinalize(jscene), finalize(tscene)
     ref = jintegrator.render_gbuffer(jscene, jcamera, jax.random.key(4),
                                      JConfig(**kw), 2)
-    before = bk.PATH_LAUNCHES
+    before = LAUNCHES["K2"]
     out = integrator.render_gbuffer(tscene, tcamera, threefry.key(4),
                                     RenderConfig(**kw), 2, device="cpu")
-    assert bk.PATH_LAUNCHES == before  # CPU tensors: the plain version
+    assert LAUNCHES["K2"] == before  # CPU tensors: the plain version
     assert set(out) == set(AOVS)
     for name in AOVS:
         a, b = np.asarray(ref[name]), out[name].numpy()

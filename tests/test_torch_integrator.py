@@ -20,6 +20,7 @@ from raytracingthenextweekcuda_tpu_torch.io.image import read_png
 from raytracingthenextweekcuda_tpu_torch.models import integrator, presets
 from raytracingthenextweekcuda_tpu_torch.models.scene import finalize
 from raytracingthenextweekcuda_tpu_torch.ops.cuda import bounce_kernel as bk
+from raytracingthenextweekcuda_tpu_torch.ops.cuda.launch import LAUNCHES
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "raytracingthenextweekcuda_tpu_torch"
@@ -42,9 +43,9 @@ def test_render_matches_reference(jax_cornell_film, cornell):
     scene, camera = cornell
     cfg = RenderConfig(**CFG)
     assert cfg.passes() == [2, 2]
-    before = bk.KERNEL_LAUNCHES
+    before = LAUNCHES["K1"]
     film = integrator.render(scene, camera, cfg, device="cpu")
-    assert bk.KERNEL_LAUNCHES == before  # CPU tensors: the plain version
+    assert LAUNCHES["K1"] == before  # CPU tensors: the plain version
     assert film.sample_count == int(jax_cornell_film.sample_count) == 4
     np.testing.assert_allclose(film.accum.numpy(),
                                np.asarray(jax_cornell_film.accum),
@@ -54,13 +55,13 @@ def test_render_matches_reference(jax_cornell_film, cornell):
 def test_cuda_request_without_cuda_raises(cornell, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     scene, camera = cornell
-    before = bk.KERNEL_LAUNCHES
+    before = LAUNCHES["K1"]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         integrator.render(scene, camera, RenderConfig(**CFG), device="cuda")
     with pytest.raises(RuntimeError, match="CUDA device"):
         bench.run_bench(width=8, height=8, spp=1, bounces=1, spp_per_pass=1,
                         device="cuda")
-    assert bk.KERNEL_LAUNCHES == before
+    assert LAUNCHES["K1"] == before
 
 
 def test_entry_points_default_to_cuda(cornell, monkeypatch):
@@ -93,10 +94,10 @@ def test_differentiable_wavefront_matches_reference(jax_cornell_film, cornell):
     """fused_bounce=False on a finalized scene: the torch wavefront over K3,
     per sample, gives the reference's image (and so K1's)."""
     scene, camera = cornell
-    before = bk.KERNEL_LAUNCHES
+    before = LAUNCHES["K1"]
     film = integrator.render(scene, camera, RenderConfig(**CFG, fused_bounce=False),
                              device="cpu")
-    assert bk.KERNEL_LAUNCHES == before
+    assert LAUNCHES["K1"] == before
     np.testing.assert_allclose(film.accum.numpy(),
                                np.asarray(jax_cornell_film.accum),
                                rtol=1e-4, atol=1e-4)

@@ -46,7 +46,7 @@ from raytracingthenextweekcuda_tpu_torch.models.scene import (
 )
 from raytracingthenextweekcuda_tpu_torch.ops import intersect, threefry, traverse
 from raytracingthenextweekcuda_tpu_torch.ops.bvh import BVH, build_bvh, refit
-from raytracingthenextweekcuda_tpu_torch.ops.cuda import bounce_kernel as bk
+from raytracingthenextweekcuda_tpu_torch.ops.cuda.launch import LAUNCHES
 from raytracingthenextweekcuda_tpu_torch.ops.geometry import Triangles
 from raytracingthenextweekcuda_tpu_torch.ops.rays import Rays
 
@@ -287,10 +287,10 @@ def test_lbvh_render_matches_reference(lbvh_scenes, rr):
     kw = dict(width=16, height=12, spp=2, bounces=4, spp_per_pass=2,
               russian_roulette=rr, rr_start_bounce=1)
     ref = jintegrator.render(jscene, JCamera.make(**CAMERA), JConfig(**kw))
-    launches = (bk.KERNEL_LAUNCHES, bk.PATH_LAUNCHES)
+    launches = (LAUNCHES["K1"], LAUNCHES["K2"])
     steps = traverse.STEPS
     film = integrator.render(tscene, camera, RenderConfig(**kw), device="cpu")
-    assert traverse.STEPS > steps and (bk.KERNEL_LAUNCHES, bk.PATH_LAUNCHES) == launches
+    assert traverse.STEPS > steps and (LAUNCHES["K1"], LAUNCHES["K2"]) == launches
     out = film.accum.numpy()
     assert np.isfinite(out).all() and out.mean() > 0.01
     np.testing.assert_allclose(out, np.asarray(ref.accum), **TOL)

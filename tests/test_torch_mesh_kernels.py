@@ -37,6 +37,7 @@ from raytracingthenextweekcuda_tpu_torch.ops import threefry
 from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
 from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
 from raytracingthenextweekcuda_tpu_torch.ops.cuda import work
+from raytracingthenextweekcuda_tpu_torch.ops.cuda.launch import LAUNCHES
 from raytracingthenextweekcuda_tpu_torch.ops.fused import device_scene, mesh_query
 from raytracingthenextweekcuda_tpu_torch.ops.materials import material_table
 from raytracingthenextweekcuda_tpu_torch.ops.rays import Rays
@@ -129,11 +130,11 @@ def test_k3_plain_matches_reference(soup, triangles):
         jr, jk3.pack_scene_host(ref_scene), EPSILON, interpret=True,
         alive=jnp.asarray(alive))
     packed = k3.pack_scene_host(_port_scene(jscene))
-    before = k3.KERNEL_LAUNCHES
+    before = LAUNCHES["K3"]
     t_out, c_out = k3.intersect_packed(
         tr, k3.analytic_rows(packed, "cpu", include_triangles=triangles),
         EPSILON, alive=torch.from_numpy(alive))
-    assert k3.KERNEL_LAUNCHES == before  # CPU tensors: the plain version
+    assert LAUNCHES["K3"] == before  # CPU tensors: the plain version
     assert t_out.dtype == torch.float32 and c_out.dtype == torch.int32
     # Dead rays: (BIG, -1).
     assert (c_out.numpy()[~alive] == -1).all()
@@ -218,9 +219,9 @@ def test_worklist_on_cpu_runs_the_plain_version(mesh_wavefronts):
             for x in (o, d))
     alive = torch.from_numpy(np.concatenate([alive, np.zeros(pad, bool)]))
     tcap = torch.from_numpy(np.concatenate([tcap, np.full(pad, k3.BIG, np.float32)]))
-    before = k4.WORKLIST_LAUNCHES
+    before = LAUNCHES["worklist"]
     out = k4.build_worklist(o, d, alive, ds.leaves.leaf_bounds, EPSILON, tcap=tcap)
-    assert k4.WORKLIST_LAUNCHES == before
+    assert LAUNCHES["worklist"] == before
     ref = k4.worklist_reference(o, d, alive, tcap, ds.leaves.leaf_bounds, EPSILON)
     for got, want in zip(out, ref):
         assert torch.equal(got, want)
@@ -243,11 +244,11 @@ def test_k4_plain_matches_reference(mesh_wavefronts, front, with_tcap):
     t_ref, c_ref = jk4.intersect_packed_bvh(
         jr, jscene.packed, EPSILON, interpret=True, alive=jnp.asarray(alive),
         t_cap=None if cap is None else jnp.asarray(cap))
-    before = k4.KERNEL_LAUNCHES
+    before = LAUNCHES["K4"]
     t_out, c_out = k4.intersect_packed_bvh(
         tr, ds.leaves, EPSILON, alive=torch.from_numpy(alive),
         t_cap=None if cap is None else torch.from_numpy(cap))
-    assert k4.KERNEL_LAUNCHES == before
+    assert LAUNCHES["K4"] == before
     assert (c_out.numpy()[~alive] == -1).all()
     _compare(f"K4 front={front} tcap={with_tcap}", t_ref, c_ref, t_out, c_out,
              alive)
@@ -505,7 +506,7 @@ def test_launch_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     o, d, tm, alive = _random_rays(256, seed=6)
     rows = k3.analytic_rows(k3.pack_scene_host(_port_scene(_soup(4, 2, 3, 0))), "cpu")
-    before3, before4 = k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES
+    before3, before4 = LAUNCHES["K3"], LAUNCHES["K4"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         k3._launch(torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tm),
                    torch.from_numpy(alive), rows, EPSILON)
@@ -515,8 +516,8 @@ def test_launch_without_nvcc_raises(tmp_path, monkeypatch):
     args = k4.winner_inputs(rays, leaves, EPSILON, torch.from_numpy(alive))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         k4._launch(*args, leaves, EPSILON)
-    before_wl = k4.WORKLIST_LAUNCHES
+    before_wl = LAUNCHES["worklist"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         k4._launch_worklist(*args[:4], leaves.leaf_bounds, EPSILON)
-    assert (k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES) == (before3, before4)
-    assert k4.WORKLIST_LAUNCHES == before_wl
+    assert (LAUNCHES["K3"], LAUNCHES["K4"]) == (before3, before4)
+    assert LAUNCHES["worklist"] == before_wl

@@ -25,9 +25,7 @@ from raytracingthenextweekcuda_tpu_torch.apps import bench, bench_scenes
 from raytracingthenextweekcuda_tpu_torch.config import RenderConfig
 from raytracingthenextweekcuda_tpu_torch.models import integrator, presets
 from raytracingthenextweekcuda_tpu_torch.models.scene import finalize
-from raytracingthenextweekcuda_tpu_torch.ops.cuda import bounce_kernel as bk
-from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
-from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
+from raytracingthenextweekcuda_tpu_torch.ops.cuda.launch import LAUNCHES
 
 CFG = dict(width=24, height=24, spp=4, bounces=4, spp_per_pass=4)
 
@@ -59,9 +57,9 @@ def test_mesh_render_matches_reference(mesh, extra):
     scene, camera = mesh
     assert scene.packed.leaf_bounds is not None  # 960 triangles: tile-BVH
     kw = {**CFG, **extra}
-    before = (bk.KERNEL_LAUNCHES, k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES)
+    before = (LAUNCHES["K1"], LAUNCHES["K3"], LAUNCHES["K4"])
     out = _render(scene, camera, **kw)
-    assert (bk.KERNEL_LAUNCHES, k3.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES) == before
+    assert (LAUNCHES["K1"], LAUNCHES["K3"], LAUNCHES["K4"]) == before
     ref = _reference(kw)
     assert out.shape == (24, 24, 3) and np.isfinite(out).all()
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)

@@ -39,6 +39,7 @@ from raytracingthenextweekcuda_tpu_torch.models import presets as tpresets
 from raytracingthenextweekcuda_tpu_torch.models.scene import finalize
 from raytracingthenextweekcuda_tpu_torch.ops import rng, threefry
 from raytracingthenextweekcuda_tpu_torch.ops.cuda import bounce_kernel as bk
+from raytracingthenextweekcuda_tpu_torch.ops.cuda.launch import LAUNCHES
 from raytracingthenextweekcuda_tpu_torch.ops.rays import Rays
 
 PRESETS = ["diffuse_sphere_plane", "cornell_box", "defocus_blur",
@@ -162,7 +163,7 @@ def test_entries_take_the_plain_version_on_cpu():
     cfg = RenderConfig(width=8, height=8, spp=1, bounces=3)
     rays, ctx = tcam.generate_rays(tcam.derive(camera, 1.0),
                                    threefry.split(threefry.key(0), 1)[0], 8, 8)
-    before = (bk.PATH_LAUNCHES, bk.BOUNCE_LAUNCHES)
+    before = (LAUNCHES["K2"], LAUNCHES["K0"])
     a = bk.path_trace(scene.packed, rays, ctx, cfg)
     np.testing.assert_array_equal(
         a.numpy(), bk.path_trace_reference(scene.packed, rays, ctx, cfg).numpy())
@@ -171,7 +172,7 @@ def test_entries_take_the_plain_version_on_cpu():
     r = bk.bounce_step_reference(scene.packed, bk.planar_state(rays), u4, 0, cfg)
     for x, y in zip(s, r):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
-    assert (bk.PATH_LAUNCHES, bk.BOUNCE_LAUNCHES) == before
+    assert (LAUNCHES["K2"], LAUNCHES["K0"]) == before
 
 
 def test_entries_refuse_what_they_cannot_trace():

@@ -24,6 +24,7 @@ from raytracingthenextweekcuda_tpu_torch.models.scene import (
 )
 from raytracingthenextweekcuda_tpu_torch.ops import geometry, rng, threefry
 from raytracingthenextweekcuda_tpu_torch.ops.cuda import shade_kernel as sk
+from raytracingthenextweekcuda_tpu_torch.ops.cuda.launch import LAUNCHES
 from raytracingthenextweekcuda_tpu_torch.ops.fused import device_scene, winners
 from raytracingthenextweekcuda_tpu_torch.ops.materials import material_table
 
@@ -69,7 +70,7 @@ def test_plain_version_is_the_bounce_body(mesh, extra):
     used = scene.packed.used_kinds
     state, ctx, ray_ctx = _wavefront(scene, camera)
     slot = torch.arange(state[0].count)
-    before = sk.SHADE_LAUNCHES
+    before = LAUNCHES["shade"]
     for b in range(2):
         body = integrator._bounce_body(ds, mats, used, cfg, state, ray_ctx, b)
         win = winners(ds, state[0], cfg.tmin, alive=state[3])
@@ -85,7 +86,7 @@ def test_plain_version_is_the_bounce_body(mesh, extra):
         state = (body[0].take(perm), body[1][perm], body[2][perm], body[3][perm])
         slot = slot[perm]
         ray_ctx = rng.RayCtx(*(w[perm] for w in ray_ctx))
-    assert sk.SHADE_LAUNCHES == before
+    assert LAUNCHES["shade"] == before
 
 
 def test_cpu_render_takes_the_torch_body(mesh):
@@ -93,9 +94,9 @@ def test_cpu_render_takes_the_torch_body(mesh):
     body's engine."""
     scene, camera = mesh
     cfg = RenderConfig(width=12, height=12, spp=2, bounces=4)
-    before = sk.SHADE_LAUNCHES
+    before = LAUNCHES["shade"]
     sorted_film = integrator.render(scene, camera, cfg, device="cpu")
-    assert sk.SHADE_LAUNCHES == before
+    assert LAUNCHES["shade"] == before
     plain = integrator.render(scene, camera, RenderConfig(width=12, height=12, spp=2,
                                                           bounces=4, sort_rays=False),
                               device="cpu")
@@ -144,13 +145,13 @@ def test_gradient_through_the_sorted_wavefront(mesh):
     scene = finalize(b.build())
     assert integrator._sorted_eligible(scene)
     verts = torch.as_tensor(scene.triangles.vertices).clone().requires_grad_(True)
-    before = sk.SHADE_LAUNCHES
+    before = LAUNCHES["shade"]
     g = integrator.render_gbuffer(with_leaves(scene, {"triangles.vertices": verts}),
                                   mesh[1], threefry.key(0),
                                   RenderConfig(width=8, height=8, spp=1, bounces=3),
                                   1, device="cpu")
     g["radiance"].sum().backward()
-    assert sk.SHADE_LAUNCHES == before
+    assert LAUNCHES["shade"] == before
     assert torch.isfinite(verts.grad).all() and float(verts.grad.abs().max()) > 0
 
 
@@ -202,9 +203,9 @@ def _launch_args(mesh):
 
 def test_shade_on_cpu_runs_the_plain_version(mesh):
     args = _launch_args(mesh)
-    before = sk.SHADE_LAUNCHES
+    before = LAUNCHES["shade"]
     out, plain = sk.shade(*args), sk.shade_reference(*args)
-    assert sk.SHADE_LAUNCHES == before
+    assert LAUNCHES["shade"] == before
     assert torch.equal(out[0].origin, plain[0].origin) and torch.equal(out[2], plain[2])
 
 
@@ -246,7 +247,7 @@ def test_shade_launch_without_nvcc_raises(mesh, tmp_path, monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(build, "_LIB", None)
     monkeypatch.delenv("CUDA_HOME", raising=False)
-    before = sk.SHADE_LAUNCHES
+    before = LAUNCHES["shade"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         sk._launch(*_launch_args(mesh))
-    assert sk.SHADE_LAUNCHES == before
+    assert LAUNCHES["shade"] == before
