@@ -41,7 +41,12 @@ Phases, each printing one line or more:
   9. K3 and K4 times: CUDA events of each kernel on the full-size primary
      and bounce-2 wavefronts beside its plain version's time; K4's
      evaluated (block, leaf) pairs, the mean rays of a block that need the
-     leaf (leaf visits over pairs) and the threads a ray that mean gives;
+     leaf (leaf visits over pairs), its chunk box tests and the scanned
+     share (the triangles of the entered chunks over the leaves'), with no
+     candidate outside an entered chunk; then K4 on the benchmark's mesh
+     (`benchmark/configs/mesh_stress`, 84 leaves) primary and bounce-2
+     wavefronts, bit for bit against its plain version, its time beside
+     its bound, its CTAs a SM and the same work;
  10. K2 and K0 vs plain: K2 against its plain version on the same CUDA
      tensors on the Cornell primary wavefront (512x512, one sample, 10
      bounces, about two rays a lane of its persistent grid) and on the 5
@@ -304,7 +309,7 @@ def _ptxas_by_entry(log: str) -> dict:
 # K4's production instantiation (without the stats counters).
 K1_REGS = 72
 K1_SPILL = 4
-K4_REGS = 64
+K4_REGS = 61
 K4_SPILL = 0
 # ptxas's registers and spill bytes of the shade kernel.
 SHADE_REGS = 64
@@ -380,15 +385,33 @@ def _k3_bound(rays, alive, rows) -> tuple:
 
 def _k4_bound(origin, wl, leaves, counts) -> tuple:
     """K4's bound: the live rays' tests of the leaf boxes of their blocks'
-    lists and the triangle tests of the leaves they enter in front of their
-    best t, as its plain version counted them; it reads the rays, their
-    ceilings, the work lists and the leaves and writes (t, code)."""
+    lists, the tests of the chunk boxes of the leaves they enter and the
+    triangle tests of the chunks they enter in front of their best t, as
+    its plain version counted them; it reads the rays, their ceilings, the
+    work lists and the leaves and writes (t, code)."""
     nbytes = (origin.shape[0] * (12 + 12 + 1 + 4 + 8)
               + sum(t.numel() * t.element_size() for t in wl)
               + sum(t.numel() * t.element_size()
-                    for t in (leaves.leaf_bounds, leaves.leaf_tiles, leaves.trih)))
-    return _bound(nbytes, counts["triangle_tests"] * HAVEL_OPS
-                  + counts["box_tests"] * NODE_OPS)
+                    for t in (leaves.leaf_bounds, leaves.leaf_tiles, leaves.leaf_count,
+                              leaves.chunk_bounds, leaves.aos)))
+    return _bound(nbytes, counts["chunk_triangle_tests"] * HAVEL_OPS
+                  + (counts["box_tests"] + counts["chunk_tests"]) * NODE_OPS)
+
+
+def _k4_work(label, counts) -> str:
+    """K4's work as its plain version counted it, for a phase 9 line."""
+    needing = counts["leaf_visits"] / max(counts["block_leaves"], 1)
+    share = counts["chunk_triangle_tests"] / max(counts["triangle_tests"], 1)
+    if counts["chunk_misses"]:
+        raise AssertionError(f"K4 {label}: {counts['chunk_misses']} candidates lie "
+                             f"in chunks their rays do not enter")
+    return (f"[9 K4 work] {label}: {counts['block_leaves']} (block, leaf) pairs "
+            f"evaluated, {counts['leaf_visits']} ray-leaf visits ({needing:.2f} "
+            f"needing rays a pair) | {counts['chunk_tests']} chunk box tests "
+            f"({counts['chunk_tests'] / max(counts['leaf_visits'], 1):.2f} a visit) | "
+            f"{counts['chunk_triangle_tests']} triangle tests in entered chunks of "
+            f"{counts['triangle_tests']} in the leaves: scanned share {share:.4f} | "
+            f"0 candidates outside entered chunks")
 
 
 def _render_bound(inp, counts, scale: float = 1.0) -> tuple:
@@ -1242,21 +1265,38 @@ def main() -> None:
                          _k4_bound(args[0], args[4], ds.leaves, work.WORK))
         occ[front] = (_residency("rtnw_closest_hit_occupancy", ds.analytic.counts,
                                  rays.count),
-                      _residency("rtnw_bvh_winner_occupancy",
-                                 (ds.leaves.max_count,), args[0].shape[0]))
-        needing = work.WORK["leaf_visits"] / max(work.WORK["block_leaves"], 1)
-        lanes = min(32, 1 << int(np.floor(np.log2(128 / needing)))) if needing else 32
+                      _residency("rtnw_bvh_winner_occupancy", (), args[0].shape[0]))
         print(f"[9 kernel times] published/{front} ({rays.count} rays): K3 "
               f"{k3_ms:.4f} ms vs plain {k3p_ms:.3f} ms ({_res(occ[front][0])}) | "
-              f"K4 {k4_ms:.4f} ms vs plain {k4p_ms:.3f} ms ({_res(occ[front][1])}, "
-              f"leaf buffers of {ds.leaves.max_count} columns; bound "
-              f"{bounds[front][1][0]:.4f} ms) | work-list build {wl_ms:.3f} ms "
+              f"K4 {k4_ms:.4f} ms vs plain {k4p_ms:.3f} ms ({_res(occ[front][1])}; "
+              f"bound {bounds[front][1][0]:.4f} ms) | work-list build {wl_ms:.3f} ms "
               f"(CUDA events; plain: host clock, one run) | {card}", flush=True)
-        print(f"[9 K4 work] published/{front}: {work.WORK['block_leaves']} (block, "
-              f"leaf) pairs evaluated, {work.WORK['leaf_visits']} ray-leaf visits: "
-              f"{needing:.2f} needing rays a pair, so S = {lanes} threads a ray at "
-              f"that mean | {work.WORK['triangle_tests']} triangle tests",
-              flush=True)
+        print(_k4_work(f"published/{front}", work.WORK), flush=True)
+    # K4 on the benchmark's mesh (benchmark/configs/mesh_stress, 84 leaves),
+    # bit for bit against its plain version, beside its bound.
+    from benchmark import program, scenedata
+
+    bench_scene, bench_cam = program.build_scene(scenedata.load_config("mesh_stress"))
+    bds, bench_fronts = _wavefronts(finalize(bench_scene), bench_cam, mesh_cfg, 16, dev)
+    for front, rays, alive in bench_fronts:
+        t3, c3 = k3.intersect_packed(rays, bds.analytic, EPSILON, alive=alive)
+        alive_mesh, t_cap = mesh_query(bds.leaves, rays, EPSILON, alive, t3, c3)
+        args = k4.winner_inputs(rays, bds.leaves, EPSILON, alive_mesh, t_cap)
+        t4, c4 = k4.winner(*args, bds.leaves, EPSILON)
+        work.reset()
+        k4p_ms, (t4p, c4p) = _host_ms(lambda: k4.winner_reference(*args, bds.leaves,
+                                                                  EPSILON))
+        k4_err = max(k4_err, _check_equal(f"K4 benchmark mesh/{front}", t4, c4, t4p,
+                                          c4p))
+        k4_ms = _event_ms(lambda: k4.winner(*args, bds.leaves, EPSILON), reps=10)
+        bm_bound = _k4_bound(args[0], args[4], bds.leaves, work.WORK)
+        bm_res = _residency("rtnw_bvh_winner_occupancy", (), args[0].shape[0])
+        print(f"[9 kernel times] benchmark mesh/{front} ({rays.count} rays, "
+              f"{int(alive_mesh.sum())} to K4, {bds.leaves.n_leaves} leaves): K4 "
+              f"{k4_ms:.4f} ms (CUDA events, mean of 10; {_res(bm_res)}) vs bound "
+              f"{bm_bound[0]:.4f} ms ({bm_bound[1]}) | plain {k4p_ms:.1f} ms (host clock) | "
+              f"codes equal, max|dt| 0 | {card}", flush=True)
+        print(_k4_work(f"benchmark mesh/{front}", work.WORK), flush=True)
 
     # 10. K2 and K0 against their plain versions; K0's main path
     from raytracingthenextweekcuda_tpu_torch.apps import fit

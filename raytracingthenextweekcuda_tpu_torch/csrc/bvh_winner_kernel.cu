@@ -16,29 +16,37 @@
 //  - Output: t and code = 3 << 24 | padded triangle column, or (BIG, -1).
 //
 // What bounds it on this card: FP32 work, about 41 operations per ray and
-// triangle column tested. A block scans a leaf when any of its rays needs
-// it, most of its rays may not, and a 768-wide tile is partly padding, so
-// the design spends the lanes only on the (ray, column) pairs that can win:
+// triangle column tested. A ray that enters a leaf box meets few of the
+// leaf's up to 767 triangles, so the design tests only the columns that can
+// win, one warp a (ray, chunk):
 //  - Real columns only. A tile's real triangles are a prefix of it
 //    (`leaf_count`); the zero padding behind it has a zero normal, fails
-//    the back-face test and is neither staged nor scanned.
+//    the back-face test and is never read.
 //  - Per-ray culling. The rays that need the leaf are compacted into a
-//    list of m (ballot and popc in a warp, a prefix over the warps), and
-//    S = min(32, the largest power of two <= 128 / m) adjacent threads
-//    share each listed ray: thread (r, s) tests columns s, s + S, ... and
-//    keeps its first strict minimum below the ray's best. The S partial
-//    (t, column) pairs are reduced with __shfl_xor_sync, smaller t first,
-//    then the lower column.
-//  - Vector staging, double-buffered. A leaf is one contiguous run of
-//    16-byte vectors of the array-of-structures copy `aos` (n.xyz dc,
-//    e1p d1, e2p d2 per column), copied with cp.async into one of two
-//    shared-memory buffers; a scan step is three LDS.128. While a leaf is
-//    scanned, the next leaf of the list is copied into the other buffer; a
-//    prefetched leaf that the re-check then skips costs only its copy.
+//    list of m (ballot and popc in a warp, a prefix over the warps).
+//  - Per-chunk culling. The leaf's columns are cut into chunks of 32, each
+//    with a box (`chunk_bounds`, built once at finalize: the chunk's real
+//    triangles, widened for rounding). Warp w takes listed rays w, w + 4,
+//    ...; lane c tests the ray's entry into chunk box c (a leaf has at most
+//    32 chunks, 1024 columns; the host checks it) against the ray's
+//    best t before the leaf, and for each entered chunk, in column order,
+//    lane j tests column 32c + j, keeping its first strict minimum below
+//    that best. The warp's (t, column) minimum (smaller t, then the lower
+//    column) goes to s_best / s_win. The warp owns the ray for the whole
+//    leaf: no atomics, no pair list.
+//  - No staging. A (ray, chunk) reads its 32 columns' 16-byte vectors of
+//    `aos` (n.xyz dc, e1p d1, e2p d2 per column) through the read-only L1
+//    path; a block's coherent rays enter the same few chunks, so most
+//    reads hit L1, and no shared-memory leaf buffer limits the CTAs a SM.
+// A chunk left out holds no candidate: the box holds every point that the
+// Havel test accepts of its triangles (with the pad of the build), and the
+// entry test is loosened by kSlack in t for the rounding of the slab and of
+// the hit point, so a triangle hit at t < best lies in an entered chunk.
 // Every (ray, column) t is computed by the sequential scan's expression and
 // the lexicographic minimum does not depend on the order of comparisons, so
 // the winner is the sequential scan's: the kernel equals the plain torch
-// version (ops/cuda/bvh_winner_kernel.py winner_reference) bit for bit.
+// version (ops/cuda/bvh_winner_kernel.py winner_reference), which scans
+// every real column of a leaf, bit for bit.
 // Left out as TPU workarounds: the streaming DMA of the Havel rows,
 // WINNER_SUB block batching and the 1024-ray padding.
 //
@@ -46,8 +54,8 @@
 // [walked, evaluated], as the reference's stats output does: `walked` the
 // list positions before the horizon break, `evaluated` those where at least
 // one live ray needs the leaf ([0, 0] for a block with no live ray or an
-// empty list). A prefetched leaf is not walked until the walk reaches it.
-// The production instantiation, kStats = false, carries no counter.
+// empty list). The production instantiation, kStats = false, carries no
+// counter.
 //
 // Rounding follows the plain version: no fused multiply-add (built with
 // --fmad=false) and true divisions.
@@ -62,9 +70,13 @@ constexpr float kFltEps = 1.1920929e-7f;
 constexpr float kInvEps = 1e-20f;
 constexpr int kBlock = 128;
 constexpr int kWarps = kBlock / 32;
+constexpr int kChunk = 32;   // columns of a chunk, one a lane
 constexpr int kColVecs = 3;  // float4 vectors of one column's 12 geometry rows
 constexpr int kNoColumn = 0x7fffffff;
 constexpr unsigned kFull = 0xffffffffu;
+// The chunk entry test's slack in t, 1 + 2^-16: the slab's and the hit
+// point's rounding, relative to t, which the box's pad does not cover.
+constexpr float kSlack = 1.0f + 1.0f / 65536.0f;
 
 __device__ __forceinline__ float safe_inv(float d) {
   const float s = fabsf(d) < kInvEps ? (d >= 0.0f ? kInvEps : -kInvEps) : d;
@@ -81,29 +93,8 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return m;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Copy the `cols` columns of the leaf whose tile starts at column `first`
-// into `buf`. Thread t copies vectors t, t + kBlock, ...: a slot of either
-// buffer is always written by the same thread, so a thread that waits for
-// its own copies may reuse the slot.
-__device__ __forceinline__ void stage_leaf(float4* buf, const float4* __restrict__ aos,
-                                           int first, int cols) {
-  const float4* src = aos + (size_t)first * kColVecs;
-  for (int v = threadIdx.x; v < cols * kColVecs; v += kBlock)
-    cp_async16(buf + v, src + v);
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
 template <bool kStats>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, 8)
 bvh_winner_kernel(const float* __restrict__ origin,
                   const float* __restrict__ direction,
                   const unsigned char* __restrict__ alive,
@@ -114,12 +105,12 @@ bvh_winner_kernel(const float* __restrict__ origin,
                   const float* __restrict__ leaf_bounds,
                   const int32_t* __restrict__ leaf_tiles,
                   const int32_t* __restrict__ leaf_count,
-                  const float4* __restrict__ aos, int buf_cols, float tmin,
+                  const float4* __restrict__ aos,
+                  const float* __restrict__ chunk_bounds, int n_chunks, float tmin,
                   float exit_rel, float exit_abs, float* __restrict__ t_out,
                   int32_t* __restrict__ code_out, int32_t* __restrict__ stats) {
-  extern __shared__ float4 bufs[];  // 2 x buf_cols x kColVecs
   __shared__ float red[kWarps];
-  __shared__ float s_ray[6][kBlock];  // origin and direction of each ray
+  __shared__ float s_ray[9][kBlock];  // origin, direction, its inverse
   __shared__ float s_best[kBlock];
   __shared__ int s_win[kBlock];
   __shared__ int s_list[kBlock];       // the rays that need the current leaf
@@ -145,6 +136,7 @@ bvh_winner_kernel(const float* __restrict__ origin,
   const float tc = tcap[i];
   s_ray[0][tid] = ox; s_ray[1][tid] = oy; s_ray[2][tid] = oz;
   s_ray[3][tid] = dx; s_ray[4][tid] = dy; s_ray[5][tid] = dz;
+  s_ray[6][tid] = ix; s_ray[7][tid] = iy; s_ray[8][tid] = iz;
   s_best[tid] = tc;
   s_win[tid] = -1;
 
@@ -158,12 +150,9 @@ bvh_winner_kernel(const float* __restrict__ origin,
   // Also the barrier that publishes the rays' rows.
   const float tmax = block_max(live ? fminf(tc, ceil0) : neg_inf, red);
 
-  const int buf_vecs = buf_cols * kColVecs;
   const int32_t* my_order = order + (size_t)b * n_leaves;
   const float* my_entry = entry + (size_t)b * n_leaves;
   const int lane = tid & 31, warp = tid >> 5;
-  int pf_k = -1;   // the list position whose leaf was prefetched
-  int pf_buf = 0;  // and the buffer it went to
   int walked = 0, evaluated = 0;  // the stats counters, uniform in the block
   for (int k = 0; k < count; ++k) {
     if (!(my_entry[k] < tmax)) break;  // the same for every thread
@@ -198,44 +187,49 @@ bvh_winner_kernel(const float* __restrict__ origin,
     if (m == 0) continue;  // the same for every thread
     if (kStats) ++evaluated;
     if (node_hit) s_list[before + __popc(bits & ((1u << lane) - 1u))] = tid;
+    __syncthreads();  // the list, for every warp
 
-    // The leaf: prefetched at the previous list position, or copied now.
-    const int first = leaf_tiles[l];
     const int cols = leaf_count[l];
-    int cur = pf_buf;
-    if (pf_k != k) {
-      cp_async_wait_all();  // a prefetch of a leaf the walk skipped
-      cur = 0;
-      stage_leaf(bufs, aos, first, cols);
-    }
-    cp_async_wait_all();
-    __syncthreads();  // the leaf and the list, for every thread
-    // Prefetch the next list position's leaf into the other buffer, whose
-    // last scan ended before the barrier above.
-    if (k + 1 < count && my_entry[k + 1] < tmax) {
-      const int ln = my_order[k + 1];
-      pf_k = k + 1;
-      pf_buf = cur ^ 1;
-      stage_leaf(bufs + pf_buf * buf_vecs, aos, leaf_tiles[ln], leaf_count[ln]);
-    }
-
-    // S threads a listed ray: thread (r, s) scans columns s, s + S, ...
-    const int log_s = m > 64 ? 0 : m > 32 ? 1 : m > 16 ? 2 : m > 8 ? 3 : m > 4 ? 4 : 5;
-    const int S = 1 << log_s;
-    const int r = tid >> log_s, s = tid & (S - 1);
-    float best_t = kBig;
-    int col = kNoColumn;
-    if (r < m) {
+    // Lane c holds the box of the leaf's chunk c (at most kChunk chunks a
+    // leaf); a lane past the leaf's chunks holds an empty one.
+    const float* box = chunk_bounds + (size_t)l * 6 * n_chunks + lane;
+    const bool in_leaf = lane * kChunk < cols;
+    const float inf = __int_as_float(0x7f800000);
+    const float bx0 = in_leaf ? box[0] : inf, bx1 = in_leaf ? box[3 * n_chunks] : inf;
+    const float by0 = in_leaf ? box[n_chunks] : inf;
+    const float by1 = in_leaf ? box[4 * n_chunks] : inf;
+    const float bz0 = in_leaf ? box[2 * n_chunks] : inf;
+    const float bz1 = in_leaf ? box[5 * n_chunks] : inf;
+    const float4* tile = aos + (size_t)leaf_tiles[l] * kColVecs;
+    // Warp w: listed rays w, w + kWarps, ...; the whole warp a ray.
+    for (int r = warp; r < m; r += kWarps) {
       const int ray = s_list[r];
       const float rox = s_ray[0][ray], roy = s_ray[1][ray], roz = s_ray[2][ray];
       const float rdx = s_ray[3][ray], rdy = s_ray[4][ray], rdz = s_ray[5][ray];
-      best_t = s_best[ray];
-      const float4* buf = bufs + cur * buf_vecs;
-#pragma unroll 2
-      for (int j = s; j < cols; j += S) {
-        const float4 g0 = buf[kColVecs * j];      // n.xyz, dc
-        const float4 g1 = buf[kColVecs * j + 1];  // e1p, d1
-        const float4 g2 = buf[kColVecs * j + 2];  // e2p, d2
+      const float rix = s_ray[6][ray], riy = s_ray[7][ray], riz = s_ray[8][ray];
+      const float best0 = s_best[ray];  // the ray's best before the leaf
+      // Lane c: the ray's entry into chunk box c, the leaf's slab
+      // expression with the slack in t.
+      float cn = fminf((bx0 - rox) * rix, (bx1 - rox) * rix);
+      float cf = fmaxf((bx0 - rox) * rix, (bx1 - rox) * rix);
+      float c_lo = (by0 - roy) * riy, c_hi = (by1 - roy) * riy;
+      cn = fmaxf(cn, fminf(c_lo, c_hi));
+      cf = fminf(cf, fmaxf(c_lo, c_hi));
+      c_lo = (bz0 - roz) * riz;
+      c_hi = (bz1 - roz) * riz;
+      cn = fmaxf(cn, fminf(c_lo, c_hi));
+      cf = fminf(cf, fmaxf(c_lo, c_hi));
+      const float cfs = cf * kSlack;
+      const bool enters = in_leaf && cfs >= cn && cfs >= tmin && cn < best0 * kSlack;
+      float best_t = best0;
+      int col = kNoColumn;
+      // The entered chunks in column order; lane j tests column 32c + j.
+      for (unsigned in = __ballot_sync(kFull, enters); in != 0; in &= in - 1) {
+        const int j = (__ffs(in) - 1) * kChunk + lane;
+        if (j >= cols) continue;
+        const float4 g0 = __ldg(tile + kColVecs * j);      // n.xyz, dc
+        const float4 g1 = __ldg(tile + kColVecs * j + 1);  // e1p, d1
+        const float4 g2 = __ldg(tile + kColVecs * j + 2);  // e2p, d2
         const float dn = rdx * g0.x + rdy * g0.y + rdz * g0.z;
         const bool ok = dn < -kFltEps;  // back faces culled
         const float inv = 1.0f / (ok ? dn : 1.0f);
@@ -249,25 +243,24 @@ bvh_winner_kernel(const float* __restrict__ origin,
           col = j;
         }
       }
-    }
-    // The lexicographic (t, column) minimum over a ray's S adjacent lanes
-    // (S is uniform and divides 32, so the groups never straddle warps).
-    for (int off = S >> 1; off > 0; off >>= 1) {
-      const float ot = __shfl_xor_sync(kFull, best_t, off);
-      const int oc = __shfl_xor_sync(kFull, col, off);
-      if (ot < best_t || (ot == best_t && oc < col)) {
-        best_t = ot;
-        col = oc;
+      // The warp's lexicographic (t, column) minimum, where a lane found
+      // a candidate.
+      if (!__any_sync(kFull, col != kNoColumn)) continue;
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ot = __shfl_xor_sync(kFull, best_t, off);
+        const int oc = __shfl_xor_sync(kFull, col, off);
+        if (ot < best_t || (ot == best_t && oc < col)) {
+          best_t = ot;
+          col = oc;
+        }
       }
-    }
-    if (r < m && s == 0 && col != kNoColumn) {
-      const int ray = s_list[r];
-      s_best[ray] = best_t;
-      s_win[ray] = first + col;
+      if (lane == 0 && col != kNoColumn) {
+        s_best[ray] = best_t;
+        s_win[ray] = leaf_tiles[l] + col;
+      }
     }
     __syncthreads();  // best and win before the next re-check
   }
-  cp_async_wait_all();  // no copy outlives the block
   const float best = s_best[tid];
   const int win = s_win[tid];
   t_out[i] = win >= 0 ? best : kBig;
@@ -276,39 +269,6 @@ bvh_winner_kernel(const float* __restrict__ origin,
     stats[2 * b] = walked;
     stats[2 * b + 1] = evaluated;
   }
-}
-
-// Dynamic shared memory of a launch: two leaf buffers of `buf_cols`
-// columns. With the kernel's static arrays they pass 48 KB at 480 columns,
-// so the kernel's dynamic limit is raised to them.
-template <bool kStats>
-int winner_smem(int buf_cols, size_t* bytes) {
-  *bytes = 2 * (size_t)buf_cols * kColVecs * sizeof(float4);
-  return (int)cudaFuncSetAttribute(bvh_winner_kernel<kStats>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)*bytes);
-}
-
-template <bool kStats>
-int launch_winner(const float* origin, const float* direction,
-                  const unsigned char* alive, const float* tcap, int n_blocks,
-                  const int32_t* counts, const int32_t* order, const float* entry,
-                  int n_leaves, const float* root, const float* leaf_bounds,
-                  const int32_t* leaf_tiles, const int32_t* leaf_count,
-                  const float* aos, int buf_cols, float tmin, float* t_out,
-                  int32_t* code_out, int32_t* stats, cudaStream_t stream) {
-  size_t bytes = 0;
-  const int e = winner_smem<kStats>(buf_cols, &bytes);
-  if (e != 0) return e;
-  // The horizon margin as the plain version rounds it: the Python doubles
-  // 1.0 + 1e-5 and 1e-4 rounded to float.
-  const float exit_rel = (float)(1.0 + 1e-5);
-  const float exit_abs = (float)1e-4;
-  bvh_winner_kernel<kStats><<<n_blocks, kBlock, bytes, stream>>>(
-      origin, direction, alive, tcap, counts, order, entry, n_leaves, root,
-      leaf_bounds, leaf_tiles, leaf_count, (const float4*)aos, buf_cols, tmin,
-      exit_rel, exit_abs, t_out, code_out, stats);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -321,28 +281,32 @@ extern "C" int rtnw_bvh_winner(const float* origin, const float* direction,
                                const float* leaf_bounds,
                                const int32_t* leaf_tiles,
                                const int32_t* leaf_count, const float* aos,
-                               int buf_cols, float tmin, float* t_out,
-                               int32_t* code_out, int32_t* stats, void* stream) {
-  // `stats` (n_blocks, 2) int32, or null for the production instantiation.
+                               const float* chunk_bounds, int n_chunks, float tmin,
+                               float* t_out, int32_t* code_out, int32_t* stats,
+                               void* stream) {
+  // `chunk_bounds` (n_leaves, 6, n_chunks); `stats` (n_blocks, 2) int32, or
+  // null for the production instantiation.
   const cudaStream_t s = (cudaStream_t)stream;
+  // The horizon margin as the plain version rounds it: the Python doubles
+  // 1.0 + 1e-5 and 1e-4 rounded to float.
+  const float exit_rel = (float)(1.0 + 1e-5);
+  const float exit_abs = (float)1e-4;
   if (stats != nullptr)
-    return launch_winner<true>(origin, direction, alive, tcap, n_blocks, counts,
-                               order, entry, n_leaves, root, leaf_bounds,
-                               leaf_tiles, leaf_count, aos, buf_cols, tmin, t_out,
-                               code_out, stats, s);
-  return launch_winner<false>(origin, direction, alive, tcap, n_blocks, counts,
-                              order, entry, n_leaves, root, leaf_bounds,
-                              leaf_tiles, leaf_count, aos, buf_cols, tmin, t_out,
-                              code_out, nullptr, s);
+    bvh_winner_kernel<true><<<n_blocks, kBlock, 0, s>>>(
+        origin, direction, alive, tcap, counts, order, entry, n_leaves, root,
+        leaf_bounds, leaf_tiles, leaf_count, (const float4*)aos, chunk_bounds,
+        n_chunks, tmin, exit_rel, exit_abs, t_out, code_out, stats);
+  else
+    bvh_winner_kernel<false><<<n_blocks, kBlock, 0, s>>>(
+        origin, direction, alive, tcap, counts, order, entry, n_leaves, root,
+        leaf_bounds, leaf_tiles, leaf_count, (const float4*)aos, chunk_bounds,
+        n_chunks, tmin, exit_rel, exit_abs, t_out, code_out, nullptr);
+  return (int)cudaGetLastError();
 }
 
-// CTAs of K4 resident on one SM at a launch's shared memory, and its
-// threads a CTA.
-extern "C" int rtnw_bvh_winner_occupancy(int buf_cols, int* ctas, int* threads) {
-  size_t bytes = 0;
+// CTAs of K4 resident on one SM, and its threads a CTA.
+extern "C" int rtnw_bvh_winner_occupancy(int* ctas, int* threads) {
   *threads = kBlock;
-  const int e = winner_smem<false>(buf_cols, &bytes);
-  if (e != 0) return e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, bvh_winner_kernel<false>, kBlock, bytes);
+      ctas, bvh_winner_kernel<false>, kBlock, 0);
 }

@@ -141,6 +141,57 @@ def build_tile_bvh_sah(vertices: np.ndarray,
     return TileBVH(bounds=bounds, meta=meta, perm=perm)
 
 
+# Columns of a chunk: the part of a leaf tile one warp of K4 tests at once.
+CHUNK = 32
+# The widening of a chunk box: this share of its largest coordinate, for
+# the rounding of the Havel test, whose hit points lie within a few ulps of
+# those coordinates outside the triangle it accepts.
+CHUNK_PAD = 2.0 ** -15
+
+
+def chunk_bounds(vertices: np.ndarray, havel: np.ndarray,
+                 leaf_size: int) -> np.ndarray:
+    """(L, 6, ceil(leaf_size / CHUNK)) float32: the box of each run of
+    CHUNK columns of each leaf tile, rows lo_x lo_y lo_z hi_x hi_y hi_z.
+
+    `vertices` (L * leaf_size, 3, 3) are the triangles in tile order and
+    `havel` (12, L * leaf_size) their Havel rows n(3) dc e1p(3) d1 e2p(3)
+    d2. A box holds the vertices of its chunk's real columns (nonzero
+    normal) and the corners of the triangles that the rows themselves
+    accept (u, v in {(0, 0), (1, 0), (0, 1)} on the plane, in float64), is
+    widened by CHUNK_PAD of its largest coordinate and rounded outward. A
+    chunk without a real column gets lo = hi = +inf, a box no ray enters.
+    """
+    T = vertices.shape[0]
+    L = T // leaf_size
+    C = -(-leaf_size // CHUNK)
+    h = np.asarray(havel, np.float64)
+    real = (h[0:3] != 0).any(axis=0)
+    lo = np.full((T, 3), np.inf)
+    hi = np.full((T, 3), -np.inf)
+    if real.any():
+        # Rows n, e1p, e2p times a corner = dc, u - d1, v - d2.
+        m = np.stack([h[0:3].T, h[4:7].T, h[8:11].T], axis=1)[real]
+        uv = np.array([[0, 0, 0], [0, 1, 0], [0, 0, 1]], np.float64)
+        rhs = np.stack([h[3], -h[7], -h[11]], axis=1)[real][:, :, None] + uv
+        corners = np.linalg.solve(m, rhs).transpose(0, 2, 1)  # (R, corner, xyz)
+        pts = np.concatenate([np.asarray(vertices, np.float64)[real], corners],
+                             axis=1)
+        lo[real], hi[real] = pts.min(axis=1), pts.max(axis=1)
+    pad_cols = C * CHUNK - leaf_size
+    lo = np.pad(lo.reshape(L, leaf_size, 3), ((0, 0), (0, pad_cols), (0, 0)),
+                constant_values=np.inf).reshape(L, C, CHUNK, 3).min(axis=2)
+    hi = np.pad(hi.reshape(L, leaf_size, 3), ((0, 0), (0, pad_cols), (0, 0)),
+                constant_values=-np.inf).reshape(L, C, CHUNK, 3).max(axis=2)
+    empty = ~np.isfinite(lo).all(axis=2)
+    scale = np.maximum(np.abs(lo), np.abs(hi))
+    pad = CHUNK_PAD * np.where(empty, 0.0, scale.max(axis=2))[..., None]
+    lo32 = np.nextafter((lo - pad).astype(np.float32), np.float32(-np.inf))
+    hi32 = np.nextafter((hi + pad).astype(np.float32), np.float32(np.inf))
+    lo32[empty] = hi32[empty] = np.inf
+    return np.concatenate([lo32, hi32], axis=2).transpose(0, 2, 1).copy()
+
+
 def permute_rows(rows: np.ndarray, perm: np.ndarray) -> np.ndarray:
     """Reorder per-triangle planar rows (R, T) into leaf-tile order
     (R, n_leaves * leaf_size), zero-filling padded slots."""
@@ -150,5 +201,5 @@ def permute_rows(rows: np.ndarray, perm: np.ndarray) -> np.ndarray:
     return out
 
 
-__all__ = ["TileBVH", "build_tile_bvh", "build_tile_bvh_sah",
-           "permute_rows", "LEAF_SIZE"]
+__all__ = ["CHUNK", "TileBVH", "build_tile_bvh", "build_tile_bvh_sah",
+           "chunk_bounds", "permute_rows", "LEAF_SIZE"]

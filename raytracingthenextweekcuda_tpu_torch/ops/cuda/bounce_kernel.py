@@ -48,6 +48,7 @@ from raytracingthenextweekcuda_tpu_torch.ops.fmath import (
     sin as _sin,
     sqrt as _sqrt,
 )
+from raytracingthenextweekcuda_tpu_torch.ops.bvh_tile import chunk_bounds
 from raytracingthenextweekcuda_tpu_torch.ops.cuda import launch
 from raytracingthenextweekcuda_tpu_torch.ops.cuda.bvh_winner_kernel import real_columns
 from raytracingthenextweekcuda_tpu_torch.ops.cuda.intersect_kernel import (
@@ -327,16 +328,17 @@ def _pack_tile_bvh(scene, tile_bvh, T):
     tile_hi = before[meta3[2]] * leaf_size
     verts = np.asarray(scene.triangles.vertices, np.float32)
     v0 = verts[:, 0]
+    # Padding slots (zero vertices) pack a zero normal: never hit.
+    trih = _pack_havel(v0, verts[:, 1] - v0, verts[:, 2] - v0,
+                       np.asarray(scene.triangles.material_id), scene.materials)
     return dict(
         bvh_bounds=bounds,
         bvh_meta=np.concatenate([meta3, tile_lo[None], tile_hi[None]],
                                 axis=0).astype(np.int32),
         leaf_bounds=bounds[:, leaves],
         leaf_tiles=meta3[1][leaves][None, :].astype(np.int32),
-        # Padding slots (zero vertices) pack a zero normal: never hit.
-        trih=_pack_havel(v0, verts[:, 1] - v0, verts[:, 2] - v0,
-                         np.asarray(scene.triangles.material_id),
-                         scene.materials),
+        chunk_bounds=chunk_bounds(verts, trih[:HAVEL_ROWS, :T], leaf_size),
+        trih=trih,
         quadh=np.zeros((HAVEL_ROWS + MAT_ROWS, 1), np.float32),
     )
 

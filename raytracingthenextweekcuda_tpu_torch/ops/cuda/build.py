@@ -84,7 +84,8 @@ SIGNATURES: dict[str, tuple] = {
         _vp, _vp, _vp, _vp,       # origin, direction, alive (u8), tcap
         _ci, _vp, _vp, _vp, _ci,  # n_blocks, counts, order, entry, n_leaves
         _vp, _vp, _vp,            # root, leaf_bounds, leaf_tiles
-        _vp, _vp, _ci,            # leaf_count, aos rows, leaf buffer width
+        _vp, _vp,                 # leaf_count, aos rows
+        _vp, _ci,                 # chunk_bounds (n_leaves, 6, n_chunks), n_chunks
         _cf,                      # tmin
         _vp, _vp,                 # t out (float*), code out (int32*)
         _vp,                      # stats out ((n_blocks, 2) int32*) or null
@@ -120,7 +121,7 @@ SIGNATURES: dict[str, tuple] = {
         _ip, _ip,
     ),
     "rtnw_closest_hit_occupancy": (_ci, _ci, _ci, _ip, _ip),  # K3: n_sph, n_pla, n_tri
-    "rtnw_bvh_winner_occupancy": (_ci, _ip, _ip),  # K4: leaf buffer width
+    "rtnw_bvh_winner_occupancy": (_ip, _ip),       # K4
     "rtnw_worklist_occupancy": (_ci, _ip, _ip),    # the work list: n_leaves
     "rtnw_shade_occupancy": (_ip, _ip),            # the shade kernel
 }

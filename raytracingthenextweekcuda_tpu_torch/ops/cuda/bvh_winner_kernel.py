@@ -14,14 +14,20 @@ raytracingthenextweekcuda_tpu/ops/pallas/bvh_winner_kernel.py).
 2. K4 (csrc/bvh_winner_kernel.cu): per block, walk its list front to back
    up to the block's static horizon (the largest live ray's ceiling: its
    `tcap` capped by its padded root-box exit); for each leaf re-check the
-   slab against each ray's live best t and let the rays that can still
-   improve scan the leaf's real triangles (`LeafScene.leaf_count`, a
-   prefix of its tile), several threads a ray when few need it. Returns
+   slab against each ray's live best t, and for each ray that can still
+   improve, one warp tests the ray against the boxes of the leaf's
+   32-column chunks (`LeafScene.chunk_bounds`) and then the real triangles
+   (`LeafScene.leaf_count`, a prefix of its tile) of the chunks it enters
+   in front of that best, 32 columns at a time. Returns
    (t, code), code = TYPE_TRIANGLE << 24 | padded triangle column, (BIG,
    -1) on a miss and for dead rays. With `stats`, each block also reports
    its leaf counters [walked, evaluated]: the list positions it walked
    before the horizon break, and those where at least one live ray needed
    the leaf (the reference's stats output, read by apps/bench.py's probe).
+   The plain version `winner_reference` scans every real triangle of each
+   leaf a ray needs; it counts the chunk boxes K4 tests and the triangles
+   of the chunks they let through (ops/cuda/work.py), but its winners never
+   depend on the chunk boxes: it is the check that the cull loses none.
 
 `intersect_packed_bvh` is the entry: tensors on a CUDA device launch K4
 (or raise), tensors on the CPU run `winner_reference`, the same walk in
@@ -35,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from raytracingthenextweekcuda_tpu_torch.config import EPSILON, FLT_EPSILON
+from raytracingthenextweekcuda_tpu_torch.ops.bvh_tile import CHUNK
 from raytracingthenextweekcuda_tpu_torch.ops.cuda import launch
 from raytracingthenextweekcuda_tpu_torch.ops.cuda.intersect_kernel import (
     BIG,
@@ -42,6 +49,7 @@ from raytracingthenextweekcuda_tpu_torch.ops.cuda.intersect_kernel import (
 )
 from raytracingthenextweekcuda_tpu_torch.ops.cuda.work import (
     WORK,
+    chunk_triangles,
     count_leaves,
     tile_triangles,
 )
@@ -62,6 +70,9 @@ HAVEL_GEOM_ROWS = 12
 # The root-exit margin of the horizon: exit * (1 + 1e-5) + 1e-4.
 _EXIT_REL = 1.0 + 1e-5
 _EXIT_ABS = 1e-4
+# K4's slack in t on a chunk box's entry test (csrc/bvh_winner_kernel.cu,
+# kSlack; the chunk width, kChunk, is ops/bvh_tile.CHUNK).
+_CHUNK_SLACK = 1.0 + 2.0 ** -16
 
 # The most leaves the work-list kernel takes: the sort keys of the next
 # power of two in the card's 227 KB of shared memory a block.
@@ -83,7 +94,8 @@ class LeafScene(NamedTuple):
     tile: int                  # triangles per leaf
     leaf_count: torch.Tensor   # (L,) int32: real columns of each tile (a prefix)
     aos: torch.Tensor          # (L * tile, 12) float32: trih column by column
-    max_count: int             # the largest leaf_count: K4's leaf buffer width
+    max_count: int             # the largest leaf_count
+    chunk_bounds: torch.Tensor  # (L, 6, C) float32: boxes of 32-column chunks
 
     @property
     def n_leaves(self) -> int:
@@ -106,8 +118,9 @@ def real_columns(normals: torch.Tensor, first: torch.Tensor,
 
 def leaf_scene(packed, device) -> LeafScene:
     """K4's arrays of a tile-BVH pack, on `device`: the leaf boxes and
-    tiles, the Havel geometry rows, each tile's real columns and the rows
-    column by column (16-byte vectors that K4 stages a leaf from)."""
+    tiles, the Havel geometry rows, each tile's real columns, the rows
+    column by column (16-byte vectors that K4 reads a chunk from) and the
+    chunk boxes that finalize built (ops/bvh_tile.chunk_bounds)."""
     if packed.leaf_bounds is None:
         raise ValueError("scene packed without a tile-BVH (models.scene.finalize)")
     lb = torch.from_numpy(packed.leaf_bounds.copy())
@@ -125,6 +138,7 @@ def leaf_scene(packed, device) -> LeafScene:
         leaf_count=count.to(device),
         aos=trih.t().contiguous().to(device),
         max_count=int(count.max()),
+        chunk_bounds=torch.from_numpy(packed.chunk_bounds).to(device),
     )
 
 
@@ -341,12 +355,16 @@ def _launch(origin, direction, alive, tcap, wl: WorkList, scene: LeafScene,
                              (scene.leaf_tiles, torch.int32, (L,)),
                              (scene.leaf_count, torch.int32, (L,)),
                              (scene.aos, torch.float32,
-                              (L * scene.tile, HAVEL_GEOM_ROWS))))
+                              (L * scene.tile, HAVEL_GEOM_ROWS)),
+                             (scene.chunk_bounds, torch.float32,
+                              (L, 6, scene.chunk_bounds.shape[-1]))))
     if scene.aos.data_ptr() % 16:
         raise ValueError("K4 input aos: not aligned to 16 bytes")
-    if not 0 <= scene.max_count <= scene.tile:
-        raise ValueError(f"K4: leaf buffer of {scene.max_count} columns for "
-                         f"tiles of {scene.tile}")
+    n_chunks = scene.chunk_bounds.shape[-1]
+    if not 0 <= scene.max_count <= min(scene.tile, n_chunks * CHUNK, CHUNK * CHUNK):
+        raise ValueError(f"K4: leaves of {scene.max_count} columns for tiles of "
+                         f"{scene.tile} and {n_chunks} chunk boxes a leaf (a warp's "
+                         f"lanes hold at most {CHUNK})")
     if n % BLOCK:
         raise ValueError(f"K4: {n} rays is not a multiple of {BLOCK}")
     t_out = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -359,23 +377,35 @@ def _launch(origin, direction, alive, tcap, wl: WorkList, scene: LeafScene,
                 wl.order.data_ptr(), wl.entry.data_ptr(), int(L),
                 scene.root.data_ptr(), scene.leaf_bounds.data_ptr(),
                 scene.leaf_tiles.data_ptr(), scene.leaf_count.data_ptr(),
-                scene.aos.data_ptr(), int(scene.max_count), float(tmin),
+                scene.aos.data_ptr(), scene.chunk_bounds.data_ptr(),
+                int(n_chunks), float(tmin),
                 t_out.data_ptr(), code.data_ptr(), st.data_ptr() if stats else None,
                 count=("K4-stats",) if stats else ("K4",))
     return (t_out, code, st) if stats else (t_out, code)
 
 
-def _slab(lb, l, o, inv):
-    """(tn, tf) of rays (C, BLOCK) against leaf boxes lb[:, l] (one per
-    block), in the kernel's axis order."""
+def _slab(box, o, inv):
+    """(tn, tf) of rays `o`, `inv` (..., 3) against boxes `box` (6, ...),
+    rows lo xyz hi xyz that broadcast against o[..., 0], in the kernel's
+    axis order."""
     tn = tf = None
     for a in range(3):
-        t0 = (lb[a, l][:, None] - o[..., a]) * inv[..., a]
-        t1 = (lb[3 + a, l][:, None] - o[..., a]) * inv[..., a]
+        t0 = (box[a] - o[..., a]) * inv[..., a]
+        t1 = (box[3 + a] - o[..., a]) * inv[..., a]
         tna, tfa = torch.minimum(t0, t1), torch.maximum(t0, t1)
         tn = tna if tn is None else torch.maximum(tn, tna)
         tf = tfa if tf is None else torch.minimum(tf, tfa)
     return tn, tf
+
+
+def chunk_entries(boxes, o, inv, best, tmin: float) -> torch.Tensor:
+    """K4's chunk entry test: (..., chunks) bool, whether rays `o`, `inv`
+    (..., 3) enter the chunk boxes `boxes` (6, ..., chunks; broadcast
+    against the rays) in front of their best t `best` (...): the leaf's
+    slab test with the slack _CHUNK_SLACK in t."""
+    cn, cf = _slab(boxes, o[..., None, :], inv[..., None, :])
+    cfs = cf * _CHUNK_SLACK
+    return (cfs >= cn) & (cfs >= tmin) & (cn < best[..., None] * _CHUNK_SLACK)
 
 
 def winner_reference(origin, direction, alive, tcap, wl: WorkList,
@@ -425,6 +455,10 @@ def winner_reference(origin, direction, alive, tcap, wl: WorkList,
     lane = torch.arange(scene.tile, device=dev)
     trih = scene.trih
     leaf_triangles = tile_triangles(trih[0:3], scene.leaf_tiles, scene.tile)
+    n_chunks = scene.chunk_bounds.shape[-1]
+    per_chunk = chunk_triangles(trih[0:3], scene.leaf_tiles, scene.tile, n_chunks)
+    leaf_chunks = (scene.leaf_count.to(torch.int64) + CHUNK - 1) // CHUNK
+    boxes = scene.chunk_bounds.permute(1, 0, 2)  # (6, L, C)
     for k in range(order.shape[1]):
         walking = walking & (k < counts) & (entry[:, k] < tmax)
         sel = torch.nonzero(walking).flatten()
@@ -432,7 +466,7 @@ def winner_reference(origin, direction, alive, tcap, wl: WorkList,
             break
         walked += walking.to(walked.dtype)
         leaf = order[sel, k]
-        tn, tf = _slab(scene.leaf_bounds, leaf, o[sel], inv[sel])
+        tn, tf = _slab(scene.leaf_bounds[:, leaf, None], o[sel], inv[sel])
         WORK["box_tests"] += int(live[sel].sum())
         node_hit = (tf >= tn) & (tf >= tmin) & (tn < best[sel]) & live[sel]
         need = node_hit.any(dim=1)
@@ -440,6 +474,7 @@ def winner_reference(origin, direction, alive, tcap, wl: WorkList,
         evaluated[sel] += 1
         WORK["block_leaves"] += int(sel.numel())
         count_leaves(node_hit.sum(dim=1), leaf_triangles[leaf])
+        WORK["chunk_tests"] += int((node_hit.sum(dim=1) * leaf_chunks[leaf]).sum())
         for c0 in range(0, sel.numel(), _WINNER_CHUNK_BLOCKS):
             cs = sel[c0: c0 + _WINNER_CHUNK_BLOCKS]
             ts = scene.leaf_tiles[leaf[c0: c0 + _WINNER_CHUNK_BLOCKS]].to(torch.int64)
@@ -456,9 +491,17 @@ def winner_reference(origin, direction, alive, tcap, wl: WorkList,
             u = h[4] * hx + h[5] * hy + h[6] * hz + h[7]
             v = h[8] * hx + h[9] * hy + h[10] * hz + h[11]
             b = best[cs]
+            listed = node_hit[c0: c0 + _WINNER_CHUNK_BLOCKS]
+            # K4's chunk cull, counted only: the chunks whose box a
+            # listed ray enters in front of its best before the leaf.
+            lc = leaf[c0: c0 + _WINNER_CHUNK_BLOCKS]
+            in_leaf = torch.arange(n_chunks, device=dev) < leaf_chunks[lc, None]
+            enters = (chunk_entries(boxes[:, lc, None, :], o[cs], inv[cs], b, tmin)
+                      & listed[..., None] & in_leaf[:, None])  # (C, BLOCK, chunks)
+            WORK["chunk_triangle_tests"] += int((enters * per_chunk[lc, None]).sum())
             hit = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > tmin)
-                   & (t < b[..., None])
-                   & node_hit[c0: c0 + _WINNER_CHUNK_BLOCKS][..., None])
+                   & (t < b[..., None]) & listed[..., None])
+            WORK["chunk_misses"] += int((hit & ~enters[..., lane // CHUNK]).sum())
             tm = torch.where(hit, t, torch.full_like(t, BIG))
             win = torch.argmin(tm, dim=-1)
             tile_best = tm.gather(-1, win[..., None])[..., 0]
@@ -480,5 +523,5 @@ def winner_reference(origin, direction, alive, tcap, wl: WorkList,
 
 __all__ = ["BLOCK", "FRUSTUM_LEAF_THRESHOLD", "LeafScene", "WORKLIST_MAX_LEAVES",
            "WorkList", "build_worklist", "intersect_packed_bvh", "leaf_scene",
-           "real_columns", "use_frustum_worklist", "winner",
+           "chunk_entries", "real_columns", "use_frustum_worklist", "winner",
            "winner_inputs", "winner_reference", "worklist_reference"]

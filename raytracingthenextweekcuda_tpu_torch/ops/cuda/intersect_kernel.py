@@ -64,11 +64,13 @@ class PackedScene:
     # Tile-BVH packs (triangles in leaf-tile order, `trih` over all of
     # them): node bounds (6, M) f32 and meta (5, M) i32 (is_leaf, tile
     # start, skip, subtree tile range), and the leaf-only views K4 reads,
-    # bounds (6, L) f32 and tile starts (1, L) i32.
+    # bounds (6, L) f32 and tile starts (1, L) i32, and the boxes of each
+    # leaf's 32-column chunks, (L, 6, C) f32 (ops/bvh_tile.chunk_bounds).
     bvh_bounds: Optional[np.ndarray] = None
     bvh_meta: Optional[np.ndarray] = None
     leaf_bounds: Optional[np.ndarray] = None
     leaf_tiles: Optional[np.ndarray] = None
+    chunk_bounds: Optional[np.ndarray] = None
 
 
 def _pad128(n: int) -> int:

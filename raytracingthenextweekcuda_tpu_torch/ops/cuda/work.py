@@ -7,7 +7,13 @@ ray-leaf visits and the triangle tests of those visits. A leaf's triangles
 are the columns of its tile with a nonzero normal: the zero padding of a
 tile can never be hit and is not counted. K4's plain version also counts
 the (block, leaf) pairs it evaluates, `block_leaves`: leaf_visits over it
-is the mean number of rays of a block that need a leaf it scans.
+is the mean number of rays of a block that need a leaf it scans. It also
+counts what K4's chunk cull leaves: `chunk_tests`, the listed rays' tests
+of their leaves' 32-column chunk boxes, and `chunk_triangle_tests`, the
+real triangles of the chunks they enter, so that chunk_triangle_tests /
+triangle_tests is the share of the leaves' triangles K4 tests; and
+`chunk_misses`, the hits below a ray's best in chunks it does not enter,
+which must stay 0: the cull is sound where it leaves out no candidate.
 chip_smoke.py sets the counts to zero with `reset`, runs a plain version
 and turns them into the kernel's bound.
 """
@@ -16,8 +22,11 @@ from __future__ import annotations
 
 import torch
 
+from raytracingthenextweekcuda_tpu_torch.ops.bvh_tile import CHUNK
+
 WORK = {"bounces": 0, "box_tests": 0, "leaf_visits": 0, "triangle_tests": 0,
-        "block_leaves": 0}
+        "block_leaves": 0, "chunk_tests": 0, "chunk_triangle_tests": 0,
+        "chunk_misses": 0}
 
 
 def reset() -> None:
@@ -33,6 +42,16 @@ def tile_triangles(normals: torch.Tensor, first: torch.Tensor,
     return (normals[:, cols] != 0).any(dim=0).sum(dim=1)
 
 
+def chunk_triangles(normals: torch.Tensor, first: torch.Tensor, width: int,
+                    n_chunks: int) -> torch.Tensor:
+    """(C, n_chunks) the triangles of each run of CHUNK columns of the
+    leaf tiles of `width` columns that start at the columns `first` (C,)."""
+    lanes = torch.arange(n_chunks * CHUNK, device=first.device)
+    cols = first.to(torch.int64)[:, None] + lanes.clamp_max(width - 1)
+    real = (normals[:, cols] != 0).any(dim=0) & (lanes < width)
+    return real.view(-1, n_chunks, CHUNK).sum(dim=2)
+
+
 def count_leaves(rays: torch.Tensor, triangles: torch.Tensor) -> None:
     """Add leaf visits to WORK: `rays` (C,) the rays that enter each
     visited leaf, `triangles` (C,) the leaf's triangles (`tile_triangles`)."""
@@ -40,4 +59,4 @@ def count_leaves(rays: torch.Tensor, triangles: torch.Tensor) -> None:
     WORK["triangle_tests"] += int((rays.to(torch.int64) * triangles).sum())
 
 
-__all__ = ["WORK", "count_leaves", "reset", "tile_triangles"]
+__all__ = ["WORK", "chunk_triangles", "count_leaves", "reset", "tile_triangles"]

@@ -4,9 +4,11 @@ where path lengths are most uneven; K1, K2 and K0 with the tile-BVH walk bit
 for bit on warps that walk with part of their lanes and on ties between
 leaves; K2 bit for bit on its persistent grid below and above one
 resident grid, K0 from below a warp to above a resident grid; K3 and K4
-bit for bit, K4 also for every count of rays that need a leaf, on ties
-and on skipped prefetches, and K4's stats counters equal to the plain
-version's; the work-list kernel's lists equal to its plain torch loop's;
+bit for bit, K4 also for every count of rays that need a leaf, on rays
+that enter none, one, some and every 32-column chunk of a leaf (a partial
+last chunk among them), on ties in one chunk, between chunks and between
+leaves, on leaves the re-check skips mid list, and on the benchmark
+mesh's wavefronts, and K4's stats counters equal to the plain version's; the work-list kernel's lists equal to its plain torch loop's;
 K1 bit for bit on the 488 spheres of the RTiOW final scene; the shade
 kernel bit for bit against its plain torch version on wavefronts with dead
 rays, with and without Russian roulette and the sky, on all 8 material
@@ -88,17 +90,17 @@ def mesh_scene():
     return finalize(scene), camera
 
 
-def _mesh_wavefront(scene, camera, device, bounces):
-    """A 64x64, 2-spp wavefront of the tile-BVH mesh after `bounces`
+def _mesh_wavefront(scene, camera, device, bounces, size=64):
+    """A size x size, 2-spp wavefront of the tile-BVH mesh after `bounces`
     bounces of the sorted engine, on `device`: (DeviceScene, rays, alive)."""
     from raytracingthenextweekcuda_tpu_torch.ops.fused import device_scene
     from raytracingthenextweekcuda_tpu_torch.ops.materials import material_table
 
-    cfg = RenderConfig(width=64, height=64, spp=2, bounces=4)
+    cfg = RenderConfig(width=size, height=size, spp=2, bounces=4)
     words = threefry.split(threefry.key(11), 2)
     ds = device_scene(scene, device)
-    rays, ctx = tcam.generate_rays_multi(tcam.derive(camera, 1.0), words, 64, 64,
-                                         device)
+    rays, ctx = tcam.generate_rays_multi(tcam.derive(camera, 1.0), words, size,
+                                         size, device)
     n = rays.count
     state = (rays, torch.ones((n, 3), device=device),
              torch.zeros((n, 3), device=device),
@@ -410,8 +412,8 @@ def _down_rays(n, seed, tilt=0.0):
 @pytest.mark.parametrize("m", [1, 2, 31, 32, 33, 64, 65, 127, 128])
 def test_k4_matches_plain_by_needing_rays(m, cuda_device):
     """K4 bit for bit against its plain version on blocks where exactly m
-    rays need the one leaf (the rest are dead), at every split of the CTA's
-    threads over the listed rays (S = 32 down to 1)."""
+    rays need the one leaf (the rest are dead): from one listed ray, which
+    one warp takes while three idle, to 128, 32 rays a warp."""
     blocks = 8
     o, d = _down_rays(128 * blocks, seed=m)
     g = np.random.default_rng(100 + m)
@@ -441,8 +443,7 @@ def test_k4_ties_match_plain_on_card(cuda_device):
 def test_k4_skipped_prefetch_matches_plain_on_card(cuda_device):
     """Six stacked grids in several leaves: a block's list holds the leaves
     of every layer below its rays, but after the top layer the re-check
-    skips them, so the leaf prefetched behind a scanned one is dropped mid
-    list. K4 still equals its plain version bit for bit."""
+    skips them mid list. K4 still equals its plain version bit for bit."""
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import work
 
     tri = np.concatenate([_grid(40, 10, -0.25 * k) for k in range(6)])
@@ -478,6 +479,166 @@ def test_k4_stats_match_plain_on_card(cuda_device):
     assert st.dtype == torch.int32 and st.shape == (args[4].counts.shape[0], 2)
     assert torch.equal(st.cpu(), st_p.cpu())
     assert (st[:, 1] < st[:, 0]).any()
+
+
+def _hand_leaves(tiles, device):
+    """A LeafScene of hand-ordered leaves: leaf l's tile holds the
+    triangles tiles[l] (k, 3, 3) in that column order, zero-padded to the
+    768 columns of finalize's tiles, with its box and its chunk boxes as
+    finalize builds them (no tile-BVH builder reorders them)."""
+    from types import SimpleNamespace
+
+    from raytracingthenextweekcuda_tpu_torch.models.scene import (
+        LEAF_WIDTH,
+        SceneBuilder,
+    )
+    from raytracingthenextweekcuda_tpu_torch.ops.bvh_tile import chunk_bounds
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+
+    width = LEAF_WIDTH
+    verts = np.zeros((len(tiles) * width, 3, 3), np.float32)
+    boxes = []
+    for leaf, tri in enumerate(tiles):
+        verts[leaf * width: leaf * width + len(tri)] = tri
+        boxes.append(np.concatenate([tri.min(axis=(0, 1)), tri.max(axis=(0, 1))]))
+    b = SceneBuilder()
+    b.lambertian(0, (0.5, 0.5, 0.5))
+    b.mesh(verts[:1], 0)
+    v0 = verts[:, 0]
+    trih = bk._pack_havel(v0, verts[:, 1] - v0, verts[:, 2] - v0,
+                          np.zeros(len(verts), np.int32),
+                          b.build().materials)[:, :len(verts)]
+    packed = SimpleNamespace(
+        leaf_bounds=np.stack(boxes, axis=1).astype(np.float32),
+        leaf_tiles=(np.arange(len(tiles), dtype=np.int32) * width)[None],
+        trih=trih, chunk_bounds=chunk_bounds(verts, trih[:12], width))
+    return k4.leaf_scene(packed, device)
+
+
+def _quad_x(x):
+    """(2, 3, 3): the square [-1, 1]^2 of the plane at `x`, its two
+    triangles facing -x."""
+    a, b, c, d = ((x, -1, -1), (x, 1, -1), (x, 1, 1), (x, -1, 1))
+    return np.asarray([(a, d, c), (a, c, b)], np.float32)
+
+
+def _k4_hand(tiles, o, d, device, t_cap=None):
+    """K4 and its plain version on `_hand_leaves(tiles)` for rays (o, d):
+    ((t, code), (t, code) plain, leaves); one launch of K4."""
+    from raytracingthenextweekcuda_tpu_torch.config import EPSILON
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+
+    leaves = _hand_leaves(tiles, device)
+    n = o.shape[0]
+    rays = Rays(torch.from_numpy(o).to(device), torch.from_numpy(d).to(device),
+                torch.zeros(n, device=device))
+    cap = None if t_cap is None else torch.from_numpy(t_cap).to(device)
+    args = k4.winner_inputs(rays, leaves, EPSILON, t_cap=cap)
+    before = LAUNCHES["K4"]
+    out = k4.winner(*args, leaves, EPSILON)
+    assert LAUNCHES["K4"] == before + 1
+    return out, k4.winner_reference(*args, leaves, EPSILON), leaves
+
+
+@pytest.mark.cuda
+def test_k4_chunk_entries_match_plain_on_card(cuda_device):
+    """Venetian blinds in one leaf: 16 squares facing -x at x in [0, 0.015]
+    (chunk 0) and 235 at x in [0.5, 0.968] (chunks 1 to 15, the last one
+    of 22 columns: 502 is no multiple of 32). Rays that enter every chunk
+    (+x from x = -1), one (the same, capped at x = 0.2 by their analytic
+    ceiling; or +x from x = 0.947, the partial chunk only), 15 (+x from x
+    = 0.3) and none though they enter the leaf box (+y through the gap),
+    mixed in every block: K4 bit for bit against its plain version, which
+    scans every column."""
+    from raytracingthenextweekcuda_tpu_torch.config import EPSILON
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+    from raytracingthenextweekcuda_tpu_torch.ops.wavefront_sort import safe_inv
+
+    tri = np.concatenate([_quad_x(0.001 * i) for i in range(16)]
+                         + [_quad_x(0.5 + 0.002 * i) for i in range(235)])
+    g = np.random.default_rng(21)
+    n = 128 * 8
+    kind = g.integers(0, 5, n)
+    yz = g.uniform(-0.9, 0.9, (n, 2))
+    start = np.asarray([-1.0, -1.0, 0.947, 0.3, 0.3])[kind]
+    o = np.concatenate([start[:, None], yz], axis=1)
+    d = np.tile(np.float64([1.0, 0.0, 0.0]), (n, 1))
+    gap = kind == 4
+    o[gap] = np.stack([np.full(gap.sum(), 0.3), np.full(gap.sum(), -3.0),
+                       yz[gap, 1]], axis=1)
+    d[gap] = (0.0, 1.0, 0.0)
+    d[~gap, 1:] = g.uniform(-0.02, 0.02, (int((~gap).sum()), 2))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = o.astype(np.float32), d.astype(np.float32)
+    cap = np.where(kind == 1, 1.2, 3e38).astype(np.float32)
+    (t, c), (tp, cp), leaves = _k4_hand([tri], o, d, cuda_device, t_cap=cap)
+    assert torch.equal(c, cp) and torch.equal(t, tp)
+    assert int(leaves.leaf_count[0]) == 502
+    enters = k4.chunk_entries(leaves.chunk_bounds[0][:, None, :].cpu(),
+                              torch.from_numpy(o), safe_inv(torch.from_numpy(d)),
+                              torch.from_numpy(cap), EPSILON)[:, :16].sum(dim=1)
+    for k, chunks in enumerate((16, 1, 1, 15, 0)):
+        assert (enters[torch.from_numpy(kind == k)] == chunks).all(), k
+    col = (c.cpu() & 0xFFFFFF).numpy()
+    hit = c.cpu().numpy() >= 0
+    assert hit[kind < 4].all() and not hit[kind == 4].any()
+    assert (col[kind < 2] < 32).all() and (col[kind == 2] >= 480).all()
+    assert ((col[kind == 3] >= 32) & (col[kind == 3] < 64)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("between", ["chunks", "leaves"])
+def test_k4_ties_between_chunks_and_leaves_on_card(between, cuda_device):
+    """Equal t in two chunks of one leaf (a 4x4 grid of squares facing -x,
+    32 columns, and its copy in the next 32), or in two leaves (the grid in
+    each): K4 equals its plain version bit for bit, and the lower column,
+    or the leaf the block's list holds first, wins, as in the sequential
+    scan."""
+    cells = []
+    for i in range(4):
+        for j in range(4):
+            q = _quad_x(0.0)
+            q[:, :, 1] = -1 + 0.5 * i + (q[:, :, 1] + 1) * 0.25
+            q[:, :, 2] = -1 + 0.5 * j + (q[:, :, 2] + 1) * 0.25
+            cells.append(q)
+    grid = np.concatenate(cells)
+    tiles = [np.concatenate([grid, grid])] if between == "chunks" else [grid, grid]
+    g = np.random.default_rng(22)
+    n = 128 * 8
+    o = np.concatenate([np.full((n, 1), -2.0), g.uniform(-0.95, 0.95, (n, 2))], 1)
+    d = np.concatenate([np.ones((n, 1)), g.uniform(-0.1, 0.1, (n, 2))], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    (t, c), (tp, cp), _ = _k4_hand(tiles, o.astype(np.float32),
+                                   d.astype(np.float32), cuda_device)
+    assert torch.equal(c, cp) and torch.equal(t, tp)
+    col = (c.cpu() & 0xFFFFFF).numpy()
+    assert int((c >= 0).sum()) > 0.9 * n
+    assert (col[c.cpu().numpy() >= 0] < 32).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounces", [0, 2], ids=["primary", "bounce2"])
+def test_k4_matches_plain_on_benchmark_mesh(bounces, cuda_device):
+    """K4 bit for bit against its plain version on the benchmark's mesh
+    (benchmark/configs/mesh_stress: 46,840 triangles, 84 leaves) at
+    128x128, 2 spp: its primary and bounce-2 wavefronts."""
+    from benchmark import program, scenedata
+    from raytracingthenextweekcuda_tpu_torch.config import EPSILON
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
+    from raytracingthenextweekcuda_tpu_torch.ops.fused import mesh_query
+
+    scene, camera = program.build_scene(scenedata.load_config("mesh_stress"))
+    ds, rays, alive = _mesh_wavefront(finalize(scene), camera, cuda_device, bounces,
+                                      size=128)
+    assert ds.leaves.n_leaves == 84
+    t, code = k3.intersect_packed(rays, ds.analytic, EPSILON, alive=alive)
+    alive_mesh, t_cap = mesh_query(ds.leaves, rays, EPSILON, alive, t, code)
+    args = k4.winner_inputs(rays, ds.leaves, EPSILON, alive_mesh, t_cap)
+    t4, c4 = k4.winner(*args, ds.leaves, EPSILON)
+    t4p, c4p = k4.winner_reference(*args, ds.leaves, EPSILON)
+    assert torch.equal(c4, c4p) and torch.equal(t4, t4p)
+    assert int((c4 >= 0).sum()) > 0
 
 
 def _leaf_boxes(n_leaves, n_rays, seed, device, twins=False):

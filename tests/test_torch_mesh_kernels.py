@@ -375,6 +375,159 @@ def test_aos_copy_holds_the_havel_rows(name):
                                   leaves.trih[:, cols].t().numpy())
 
 
+# ---- K4's chunk boxes: built at finalize, counted by the plain version ------
+
+@pytest.mark.parametrize("name", LEAF_MESHES)
+def test_chunk_boxes_hold_their_columns(name):
+    """Each 32-column chunk box of a leaf holds, strictly inside its
+    widened faces, the vertices of the chunk's real columns; a chunk with
+    no real column, as every chunk past the leaf's count, is empty (lo = hi
+    = +inf); work.chunk_triangles splits each leaf's triangles over its
+    chunks."""
+    scene, leaves = _leaf_mesh(name)
+    C = -(-leaves.tile // k4.CHUNK)
+    box = leaves.chunk_bounds.numpy()
+    assert box.shape == (leaves.n_leaves, 6, C) and box.dtype == np.float32
+    verts = np.asarray(scene.triangles.vertices)
+    real = (leaves.trih[0:3] != 0).any(dim=0).numpy()
+    for leaf, (first, count) in enumerate(zip(leaves.leaf_tiles.tolist(),
+                                              leaves.leaf_count.tolist())):
+        for c in range(C):
+            cols = np.arange(first + k4.CHUNK * c,
+                             first + min(k4.CHUNK * (c + 1), leaves.tile))
+            v = verts[cols[real[cols]]].reshape(-1, 3)
+            if v.size == 0:
+                assert (box[leaf, :, c] == np.inf).all()
+                continue
+            assert (box[leaf, 0:3, c] < v.min(axis=0)).all()
+            assert (box[leaf, 3:6, c] > v.max(axis=0)).all()
+        assert (box[leaf, :, -(-count // k4.CHUNK):] == np.inf).all()
+    per_chunk = work.chunk_triangles(leaves.trih[0:3], leaves.leaf_tiles,
+                                     leaves.tile, C)
+    np.testing.assert_array_equal(per_chunk.sum(dim=1).numpy(),
+                                  leaves.leaf_count.numpy())
+
+
+def test_empty_chunks_are_never_entered():
+    """K4's chunk entry test never enters an empty box (lo = hi = +inf),
+    whatever the origin, the direction (zero, tiny and all-negative
+    components included) and the best t; a box around the origins is
+    entered by every ray."""
+    from raytracingthenextweekcuda_tpu_torch.ops.wavefront_sort import safe_inv
+
+    g = np.random.default_rng(12)
+    n = 4096
+    o = g.uniform(-1e3, 1e3, (n, 3))
+    d = g.normal(size=(n, 3))
+    d[::3, 0], d[1::3, 1], d[2::7, 2] = 0.0, -0.0, 1e-30
+    d[5::13] = -np.abs(d[5::13])
+    d[6::13] = np.abs(d[6::13])
+    o, d = (torch.from_numpy(x.astype(np.float32)) for x in (o, d))
+    best = torch.from_numpy(g.uniform(1e-3, 3e38, n).astype(np.float32))
+    empty = torch.full((6, 1, 5), float("inf"))
+    enters = k4.chunk_entries(empty, o, safe_inv(d), best, EPSILON)
+    assert enters.shape == (n, 5) and not enters.any()
+    around = torch.tensor([-2e3] * 3 + [2e3] * 3)[:, None, None].expand(6, 1, 5)
+    assert k4.chunk_entries(around, o, safe_inv(d), best, EPSILON).all()
+
+
+def _curved_primary(size=48):
+    """(LeafScene, rays): the stress stand-in's 16,128-triangle sphere and
+    its primary rays at size x size."""
+    from raytracingthenextweekcuda_tpu_torch.apps import bench_scenes
+
+    scene, camera, _ = bench_scenes.stress_mesh_scene()
+    leaves = k4.leaf_scene(finalize(scene, use_bvh=True).packed, "cpu")
+    rays, _ = tcam.generate_rays_multi(tcam.derive(camera, 1.0),
+                                       threefry.split(threefry.key(5), 1), size, size)
+    return leaves, rays
+
+
+def test_k4_plain_counts_chunk_work():
+    """On a curved mesh the plain K4 counts K4's chunk work: each listed ray
+    tests its leaf's ceil(count / 32) chunk boxes, and the real triangles
+    of the chunks it enters are fewer than a quarter of the leaves'
+    triangles; no candidate lies outside an entered chunk."""
+    leaves, rays = _curved_primary()
+    work.reset()
+    t, code = k4.intersect_packed_bvh(rays, leaves, EPSILON)
+    w = dict(work.WORK)
+    chunks = -(-leaves.leaf_count // k4.CHUNK)
+    assert int((code >= 0).sum()) > 0.1 * rays.count
+    assert (w["leaf_visits"] * int(chunks.min()) <= w["chunk_tests"]
+            <= w["leaf_visits"] * int(chunks.max()))
+    assert 0 < w["chunk_triangle_tests"] <= w["triangle_tests"]
+    share = w["chunk_triangle_tests"] / w["triangle_tests"]
+    print(f"scanned share {share:.4f}, {w['chunk_tests'] / w['leaf_visits']:.2f} "
+          f"chunk boxes a ray-leaf visit")
+    assert share < 0.25
+    assert w["chunk_misses"] == 0
+
+
+def test_k4_plain_winners_ignore_chunk_boxes(mesh_wavefronts):
+    """The plain K4 scans every real column of the leaves a ray needs, so
+    the chunk boxes it counts never change its winners: with boxes no ray
+    enters, (t, code) stay bit for bit, no chunk triangle test is counted
+    and every candidate is counted as a miss (none with the real boxes)."""
+    _, _, ds, fronts = mesh_wavefronts
+    empty = ds.leaves._replace(
+        chunk_bounds=torch.full_like(ds.leaves.chunk_bounds, float("inf")))
+    for _, o, d, tm, alive, tcap in fronts:
+        rays = Rays(torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tm))
+        a, c = torch.from_numpy(alive), torch.from_numpy(tcap)
+        work.reset()
+        t0, c0 = k4.intersect_packed_bvh(rays, ds.leaves, EPSILON, alive=a, t_cap=c)
+        counted = dict(work.WORK)
+        work.reset()
+        t1, c1 = k4.intersect_packed_bvh(rays, empty, EPSILON, alive=a, t_cap=c)
+        np.testing.assert_array_equal(t0.numpy(), t1.numpy())
+        np.testing.assert_array_equal(c0.numpy(), c1.numpy())
+        assert counted["chunk_triangle_tests"] > 0 and counted["chunk_misses"] == 0
+        assert work.WORK["chunk_triangle_tests"] == 0
+        assert work.WORK["chunk_misses"] >= int((c1 >= 0).sum()) > 0
+
+
+def _edge_mesh(name):
+    if name == "sphere":
+        from raytracingthenextweekcuda_tpu_torch.apps import bench_scenes
+
+        return bench_scenes.stress_mesh_scene()[0]
+    g = np.random.default_rng(2)
+    spread = 0.001 if name == "slivers" else 0.3
+    tri = g.uniform(-2, 2, (3000, 1, 3)) + g.uniform(-spread, spread, (3000, 3, 3))
+    b = SceneBuilder()
+    b.lambertian(0, (0.5, 0.5, 0.5))
+    b.mesh(tri.astype(np.float32), 0)
+    return b.build()
+
+
+@pytest.mark.parametrize("name", ["soup", "slivers", "sphere"])
+def test_chunk_cull_misses_no_candidate_on_edges(name):
+    """Rays aimed at triangle edges and corners from every side, where hits
+    lie on the faces of their chunk boxes: every candidate the plain K4
+    finds (a hit below the ray's best before its leaf) lies in a chunk the
+    ray enters, so K4's cull changes no winner."""
+    scene = finalize(_edge_mesh(name), use_bvh=True)
+    leaves = k4.leaf_scene(scene.packed, "cpu")
+    verts = np.asarray(scene.triangles.vertices, np.float64)
+    g = np.random.default_rng(11)
+    n = 1 << 14
+    idx = g.choice(np.flatnonzero(np.asarray(scene.triangles.mesh_id) >= 0), n)
+    w = g.random((n, 3))
+    w[np.arange(n), g.integers(0, 3, n)] = 0.0
+    corner = g.random(n) < 0.3
+    w[corner] = np.eye(3)[g.integers(0, 3, int(corner.sum()))]
+    target = np.einsum("nk,nkj->nj", w / w.sum(axis=1, keepdims=True), verts[idx])
+    d = g.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = Rays(torch.from_numpy((target - 3.0 * d).astype(np.float32)),
+                torch.from_numpy(d.astype(np.float32)), torch.zeros(n))
+    work.reset()
+    t, code = k4.intersect_packed_bvh(rays, leaves, EPSILON)
+    assert int((code >= 0).sum()) > 0.2 * n
+    assert work.WORK["chunk_misses"] == 0
+
+
 def test_real_columns_end_at_the_last_normal():
     """A zero column inside a tile stays in the count (only the trailing
     zero columns are cut); an empty tile counts 0."""
@@ -473,11 +626,16 @@ def test_launches_check_their_inputs():
                        leaves._replace(leaf_count=leaves.leaf_count[:-1]),
                        leaves._replace(aos=leaves.aos.t()),
                        leaves._replace(aos=leaves.aos[:, :9].contiguous()),
-                       leaves._replace(aos=leaves.aos.double())):
+                       leaves._replace(aos=leaves.aos.double()),
+                       leaves._replace(chunk_bounds=leaves.chunk_bounds.double()),
+                       leaves._replace(chunk_bounds=leaves.chunk_bounds[:-1]),
+                       leaves._replace(chunk_bounds=leaves.chunk_bounds[:, :5])):
         with pytest.raises(ValueError, match="K4 input"):
             k4._launch(*args, bad_leaves, EPSILON)
-    with pytest.raises(ValueError, match="leaf buffer"):
-        k4._launch(*args, leaves._replace(max_count=leaves.tile + 1), EPSILON)
+    for bad_leaves in (leaves._replace(max_count=leaves.tile + 1),
+                       leaves._replace(chunk_bounds=leaves.chunk_bounds[..., :1].contiguous())):
+        with pytest.raises(ValueError, match="chunk boxes a leaf"):
+            k4._launch(*args, bad_leaves, EPSILON)
     wl_args = (*args[:4], leaves.leaf_bounds)
     for k, bad_arg in ((0, args[0].double()),                   # dtype
                        (2, args[2].to(torch.uint8)),            # dtype
