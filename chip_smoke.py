@@ -152,6 +152,18 @@ Phases, each printing one line or more:
      plain version's and its bytes bound, its registers and spills and its
      CTAs a SM. Phase 2 holds its registers and spills at SHADE_REGS and
      SHADE_SPILL, and phase 8 checks one shade launch a K3 launch.
+ 25. K4 and the work lists past FRUSTUM_LEAF_THRESHOLD leaves, on the
+     materialball_x48 scene (`benchmark/configs/materialball_x48`,
+     2,247,192 triangles, 4,336 leaves): one image of its cell's job
+     (512x512, 16 spp, 5 bounces) through integrator.render, every work
+     list from the packet-frustum pass (no work-list kernel launch); then
+     on the primary and bounce-2 wavefronts the frustum pass's time, its
+     bound and its peak memory beside the exact kernel's time, both lists'
+     mean length a live block, K4's winners on the two lists bit for bit,
+     K4 on the frustum lists against its plain version on
+     MATERIALBALL_BLOCKS seeded live blocks, bit for bit, and K4's times on
+     both lists beside its bound (the sample's work scaled to the live
+     blocks) and its walked and evaluated positions a live block.
 
 Every kernel's time stands beside its CTAs resident on one SM (its
 occupancy query at the launch's shared memory) and the waves its grid
@@ -955,6 +967,154 @@ def _phase24(dev, card, shade_regs) -> dict:
           f"| plain version {plain_ms:.3f} ms (CUDA events, mean of 3) | {card}",
           flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "bound": bound, "res": res}
+
+
+# Live blocks of a materialball wavefront that phase 25 holds K4 to its
+# plain version on (the plain walk over a bounce-2 list of about 3,600
+# leaves takes seconds a block).
+MATERIALBALL_BLOCKS = 24
+
+
+def _frustum_bound(n: int, n_leaves: int, pairs: int) -> tuple:
+    """The frustum pass's bound: one box test (NODE_OPS) of each (block,
+    leaf) pair it tests, WORK["frustum_pairs"]; it reads the rays, their
+    alive flags and ceilings and the leaf boxes once and writes each
+    block's count and (block, leaves) order and entry."""
+    blocks = n // 128
+    nbytes = n * (12 + 12 + 1 + 4) + 6 * n_leaves * 4 + blocks * (4 + n_leaves * 8)
+    return _bound(nbytes, pairs * NODE_OPS)
+
+
+def _phase25(dev, card) -> dict:
+    """K4 and the work lists past FRUSTUM_LEAF_THRESHOLD leaves: the
+    materialball_x48 scene (the cell materialball_x48.offline) rendered
+    once through the frustum route, then on its primary and bounce-2
+    wavefronts the frustum pass's lists against the exact kernel's, K4's
+    winners on the two bit for bit, and K4 on the frustum lists against
+    its plain version on a seeded sample of live blocks, with times, list
+    lengths and K4's bound. Returns the primary wavefront's entries of the
+    kernels line."""
+    from benchmark import program, scenedata
+    from raytracingthenextweekcuda_tpu_torch.config import EPSILON, RenderConfig
+    from raytracingthenextweekcuda_tpu_torch.models import integrator
+    from raytracingthenextweekcuda_tpu_torch.models.scene import finalize
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import work
+    from raytracingthenextweekcuda_tpu_torch.ops.fused import mesh_query
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    scene, camera = program.build_scene(scenedata.load_config("materialball_x48"))
+    scene = finalize(scene)
+    setup_s = time.perf_counter() - t0
+    cfg = RenderConfig(width=512, height=512, spp=16, bounces=5, spp_per_pass=16)
+    # The cell's job on the main path: every work list from the frustum pass.
+    for key in ("K4", "worklist"):
+        LAUNCHES[key] = 0
+    work.reset()
+    render_ms, film = _host_ms(lambda: integrator.render(scene, camera, cfg, device=dev))
+    k4_launches = LAUNCHES["K4"]
+    ds, fronts = _wavefronts(scene, camera, cfg, 16, dev)
+    leaves = ds.leaves
+    L = leaves.n_leaves
+    # The first bounce's build tests every block of the wavefront; the
+    # sort compacts the later ones.
+    full = cfg.num_pixels * cfg.spp // k4.BLOCK * L
+    pairs = work.WORK["frustum_pairs"]
+    mean = film.mean
+    if (not k4.use_frustum_worklist(L) or k4_launches <= 0 or LAUNCHES["worklist"]
+            or not full <= pairs <= k4_launches * full
+            or not bool(torch.isfinite(mean).all()) or float(mean.mean()) <= 0.0):
+        raise AssertionError(f"materialball_x48 render: {L} leaves, K4 launches "
+                             f"{k4_launches}, work-list kernel launches "
+                             f"{LAUNCHES['worklist']}, frustum pairs {pairs} "
+                             f"({full} a full build), mean {float(mean.mean())}")
+    print(f"[25 materialball main path] {int((scene.triangles.mesh_id >= 0).sum())} "
+          f"triangles, {L} leaves (the frustum route above "
+          f"{k4.FRUSTUM_LEAF_THRESHOLD}); scene data and finalize {setup_s:.1f} s | "
+          f"one 512x512, 16-spp, 5-bounce image {render_ms:.1f} ms (host clock, "
+          f"the first on its shapes), K4 launches {k4_launches}, frustum pairs "
+          f"{pairs} ({pairs / full:.2f} full builds), work-list kernel launches 0 "
+          f"| {card}", flush=True)
+
+    out = {}
+    lb = leaves.leaf_bounds
+    for front, rays, alive in fronts:
+        t3, c3 = k3.intersect_packed(rays, ds.analytic, EPSILON, alive=alive)
+        alive_mesh, t_cap = mesh_query(leaves, rays, EPSILON, alive, t3, c3)
+        work.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        o, d, a, tcap, wl = k4.winner_inputs(rays, leaves, EPSILON, alive_mesh, t_cap)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        pairs = work.WORK["frustum_pairs"]
+        exact = k4.build_worklist(o, d, a, lb, EPSILON, tcap=tcap, frustum=False)
+        if (pairs != o.shape[0] // k4.BLOCK * L
+                or not bool((wl.counts >= exact.counts).all())):
+            raise AssertionError(f"materialball {front}: {pairs} frustum pairs, or a "
+                                 f"frustum list shorter than the exact one")
+        fr_ms = _event_ms(lambda: k4.build_worklist(o, d, a, lb, EPSILON, tcap=tcap,
+                                                    frustum=True), reps=3)
+        ex_ms = _event_ms(lambda: k4.build_worklist(o, d, a, lb, EPSILON, tcap=tcap,
+                                                    frustum=False), reps=3)
+        t_f, c_f = k4.winner(o, d, a, tcap, wl, leaves, EPSILON)
+        t_e, c_e = k4.winner(o, d, a, tcap, exact, leaves, EPSILON)
+        _check_equal(f"K4 materialball/{front}: frustum vs exact lists", t_f, c_f,
+                     t_e, c_e)
+        k4f_ms = _event_ms(lambda: k4.winner(o, d, a, tcap, wl, leaves, EPSILON), reps=5)
+        k4e_ms = _event_ms(lambda: k4.winner(o, d, a, tcap, exact, leaves, EPSILON),
+                           reps=5)
+        live = a.view(-1, k4.BLOCK).any(dim=1)
+        n_live = int(live.sum())
+        _, _, st = k4.winner(o, d, a, tcap, wl, leaves, EPSILON, stats=True)
+        st = st[live].float()
+
+        # K4 against its plain version on sampled live blocks: a block's
+        # winners depend on its own rays and list alone. The sample's work,
+        # scaled to the live blocks, gives K4's bound.
+        pick = np.sort(np.random.default_rng(25).choice(
+            torch.nonzero(live).flatten().cpu().numpy(), MATERIALBALL_BLOCKS,
+            replace=False))
+        blocks = torch.from_numpy(pick).to(dev)
+        rows = (blocks[:, None] * k4.BLOCK
+                + torch.arange(k4.BLOCK, device=dev)).flatten()
+        sub = k4.WorkList(wl.counts[blocks], wl.order[blocks], wl.entry[blocks])
+        work.reset()
+        plain_ms, (t_p, c_p) = _host_ms(lambda: k4.winner_reference(
+            o[rows], d[rows], a[rows], tcap[rows], sub, leaves, EPSILON))
+        _check_equal(f"K4 materialball/{front}: sampled blocks vs plain", t_f[rows],
+                     c_f[rows], t_p, c_p)
+        scale = n_live / MATERIALBALL_BLOCKS
+        counts = {k: v * scale for k, v in work.WORK.items()}
+        bound = _k4_bound(o, wl, leaves, counts)
+        res = _residency("rtnw_bvh_winner_occupancy", (), o.shape[0])
+        fr_bound = _frustum_bound(o.shape[0], L, pairs)
+        listed = (float(wl.counts[live].float().mean()),
+                  float(exact.counts[live].float().mean()))
+        print(f"[25 materialball {front}] {rays.count} rays, {int(a.sum())} to K4, "
+              f"{n_live} live blocks | lists a live block: frustum {listed[0]:.1f}, "
+              f"exact {listed[1]:.1f} | frustum pass {fr_ms:.3f} ms ({pairs} pairs; "
+              f"bound {fr_bound[0]:.4f} ms, {fr_bound[1]}; peak {peak / 1e9:.2f} GB "
+              f"over its inputs), exact kernel {ex_ms:.3f} ms (CUDA events, mean of 3) "
+              f"| K4 on the frustum lists {k4f_ms:.4f} ms, walked "
+              f"{float(st[:, 0].mean()):.1f} evaluated {float(st[:, 1].mean()):.1f} "
+              f"a live block ({_res(res)}) vs "
+              f"bound {bound[0]:.4f} ms ({bound[1]}; the plain version's work on "
+              f"{MATERIALBALL_BLOCKS} sampled blocks x {scale:.1f}); on the exact "
+              f"lists {k4e_ms:.4f} ms (CUDA events, mean of 5) | winners bit for bit "
+              f"on the two lists, and against the plain version on the sample "
+              f"({plain_ms:.0f} ms, host clock) | {card}", flush=True)
+        if work.WORK["chunk_misses"]:
+            raise AssertionError(f"K4 materialball/{front}: "
+                                 f"{work.WORK['chunk_misses']} candidates outside "
+                                 f"entered chunks")
+        out.setdefault(front, {"k4_ms": k4f_ms, "k4_bound": bound, "res": res,
+                               "launches": k4_launches, "frustum_ms": fr_ms,
+                               "frustum_bound": fr_bound})
+    return out["primary"]
 
 
 def main() -> None:
@@ -1954,6 +2114,7 @@ def main() -> None:
     wl = _phase22(dev, card, wl_regs)
     _phase23(dev, card, regs_spills["render_kernel<false>"])
     shade = _phase24(dev, card, shade_regs)
+    ball = _phase25(dev, card)
     src = "raytracingthenextweekcuda_tpu_torch/csrc/"
     ref = "raytracingthenextweekcuda_tpu/ops/pallas/"
     walk = f"{ref}bounce_kernel.py:820"  # the consensus walk in _bounce_core
@@ -1996,6 +2157,18 @@ def main() -> None:
               "none (XLA ops: raytracingthenextweekcuda_tpu/models/integrator.py:360)",
               shade_launches, 0.0, shade["ms"], shade["plain_ms"], shade["bound"],
               shade["res"]),
+        # Phase 25's primary wavefront; the plain versions ran on a sample
+        # of blocks only, so no plain time.
+        entry("K4 bvh_winner_kernel on materialball_x48's frustum lists",
+              "bvh_winner_kernel.cu", f"{ref}bvh_winner_kernel.py:201",
+              ball["launches"], 0.0, ball["k4_ms"], None, ball["k4_bound"],
+              ball["res"]),
+        {**entry("frustum pass _build_worklist_frustum on materialball_x48",
+                 "", f"none (XLA ops: {ref}bvh_winner_kernel.py:502)",
+                 ball["launches"], 0.0, ball["frustum_ms"], None,
+                 ball["frustum_bound"], (None, None)),
+         "route": "torch",
+         "source": "raytracingthenextweekcuda_tpu_torch/ops/cuda/bvh_winner_kernel.py"},
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -55,6 +55,7 @@ a device value. Without a profiler they cost one check each.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -171,10 +172,46 @@ class LbvhTarget(NamedTuple):
     bvh: BVH
 
 
+# Scenes placed on a device: id(scene) -> (a weak reference to the scene,
+# {device: what `_place` made}). An entry leaves with its scene.
+_PLACED: dict[int, tuple] = {}
+
+
 def _scene_on(scene: Scene, device):
     """What the torch wavefront reads on `device`: the DeviceScene of a
     finalized scene, or the unfinalized scene itself, inside an
-    LbvhTarget when the scene has an LBVH; and the material table."""
+    LbvhTarget when the scene has an LBVH; and the material table.
+
+    A finalized scene whose leaves are all numpy arrays, as `SceneBuilder`
+    and `finalize` make them, is placed once a device and kept while the
+    scene lives, so a render does not rebuild and upload its DeviceScene
+    every pass. A scene with tensor leaves (`with_leaves`, the
+    differentiable engine) is placed anew on every call, so the recompute
+    reads its current values and autograd graph; so is an unfinalized
+    scene, which is its own target."""
+    if scene.packed is None or any(
+            isinstance(getattr(part, f.name), torch.Tensor)
+            for part in (scene.spheres, scene.planes, scene.triangles,
+                         scene.materials)
+            for f in dataclasses.fields(part)):
+        return _place(scene, device)
+    key = id(scene)
+    ref, placed = _PLACED.get(key, (None, None))
+    if ref is None or ref() is not scene:
+        def forget(dead, key=key):
+            if _PLACED.get(key, (None,))[0] is dead:
+                del _PLACED[key]
+
+        ref, placed = weakref.ref(scene, forget), {}
+        _PLACED[key] = (ref, placed)
+    device = torch.device(device)
+    if device not in placed:
+        placed[device] = _place(scene, device)
+    return placed[device]
+
+
+def _place(scene: Scene, device):
+    """`_scene_on`'s target and material table, made anew."""
     target = device_scene(scene, device) if scene.packed is not None else scene
     if scene.bvh is not None and scene.triangles.count:
         tri = scene.triangles

@@ -178,8 +178,9 @@ def build_worklist(origin: torch.Tensor, direction: torch.Tensor,
     if tcap is None:
         tcap = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     if frustum:
-        return _build_worklist_frustum(origin, direction, alive, leaf_bounds,
-                                       tmin, tcap)
+        with span("k4.frustum"):
+            return _build_worklist_frustum(origin, direction, alive, leaf_bounds,
+                                           tmin, tcap)
     return launch.by_device(dev, _launch_worklist, worklist_reference, origin,
                             direction, alive, tcap, leaf_bounds, tmin)
 
@@ -218,8 +219,10 @@ def _build_worklist_frustum(origin, direction, alive, leaf_bounds, tmin,
     """Packet-frustum lists, O(blocks x leaves): an interval slab test of
     each block's live origin box and direction interval against each leaf
     box (all endpoint products; an axis whose direction interval spans 0
-    is unconstrained). Lists are supersets of the exact pass's."""
+    is unconstrained). Lists are supersets of the exact pass's. Adds the
+    (block, leaf) pairs it tests to WORK["frustum_pairs"]."""
     B = origin.shape[0] // BLOCK
+    WORK["frustum_pairs"] += B * leaf_bounds.shape[1]
     av = alive.view(B, BLOCK)
     inf = float("inf")
 

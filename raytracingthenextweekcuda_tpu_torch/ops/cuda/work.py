@@ -14,6 +14,8 @@ real triangles of the chunks they enter, so that chunk_triangle_tests /
 triangle_tests is the share of the leaves' triangles K4 tests; and
 `chunk_misses`, the hits below a ray's best in chunks it does not enter,
 which must stay 0: the cull is sound where it leaves out no candidate.
+The packet-frustum work-list pass counts the (block, leaf) pairs it
+tests, `frustum_pairs`, from the shapes alone (no device read).
 chip_smoke.py sets the counts to zero with `reset`, runs a plain version
 and turns them into the kernel's bound.
 """
@@ -26,7 +28,7 @@ from raytracingthenextweekcuda_tpu_torch.ops.bvh_tile import CHUNK
 
 WORK = {"bounces": 0, "box_tests": 0, "leaf_visits": 0, "triangle_tests": 0,
         "block_leaves": 0, "chunk_tests": 0, "chunk_triangle_tests": 0,
-        "chunk_misses": 0}
+        "chunk_misses": 0, "frustum_pairs": 0}
 
 
 def reset() -> None:

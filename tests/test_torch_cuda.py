@@ -9,7 +9,11 @@ that enter none, one, some and every 32-column chunk of a leaf (a partial
 last chunk among them), on ties in one chunk, between chunks and between
 leaves, on leaves the re-check skips mid list, and on the benchmark
 mesh's wavefronts, and K4's stats counters equal to the plain version's; the work-list kernel's lists equal to its plain torch loop's;
-K1 bit for bit on the 488 spheres of the RTiOW final scene; the shade
+K1 bit for bit on the 488 spheres of the RTiOW final scene; on the
+2,247,192 triangles of the materialball_x48 scene (past the frustum
+pass's leaf threshold), K4's winners on the frustum lists equal to those
+on the exact lists and to its plain version's on sampled blocks, and the
+frustum pass's span once a bounce; the shade
 kernel bit for bit against its plain torch version on wavefronts with dead
 rays, with and without Russian roulette and the sky, on all 8 material
 kinds and without Lambertian, over a whole sorted image, and out of the
@@ -1151,3 +1155,109 @@ def test_fit_mesh_on_card_takes_the_torch_body_for_its_gradient(cuda_device,
         runs[kernel] = (losses, LAUNCHES["shade"] - before)
     assert runs[True][0] == runs[False][0] and len(runs[True][0]) == 3
     assert runs[True][1] > 0 and runs[False][1] == 0
+
+
+@pytest.fixture(scope="module")
+def materialball():
+    """The `materialball_x48` configuration at full size (2,247,192
+    triangles, past FRUSTUM_LEAF_THRESHOLD leaves) on the card, and the
+    primary and bounce-2 wavefronts of its cell's job (512x512, 16 spp) as
+    the sorted engine traces them: (scene, camera, DeviceScene, fronts)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are compiled and run only there")
+    from benchmark import program, scenedata
+    from chip_smoke import _wavefronts
+
+    dev = torch.device("cuda", 0)
+    scene, camera = program.build_scene(scenedata.load_config("materialball_x48"))
+    scene = finalize(scene)
+    cfg = RenderConfig(width=512, height=512, spp=16, bounces=5, spp_per_pass=16,
+                       seed=23)
+    ds, fronts = _wavefronts(scene, camera, cfg, 16, dev)
+    return scene, camera, ds, dict((name, (rays, alive)) for name, rays, alive in fronts)
+
+
+def _materialball_inputs(materialball, front):
+    """K4's inputs on a materialball wavefront, with the frustum lists the
+    route takes: (origin, direction, alive, tcap, WorkList)."""
+    from raytracingthenextweekcuda_tpu_torch.config import EPSILON
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
+    from raytracingthenextweekcuda_tpu_torch.ops.fused import mesh_query
+
+    _, _, ds, fronts = materialball
+    rays, alive = fronts[front]
+    assert int((materialball[0].triangles.mesh_id >= 0).sum()) == 2247192
+    assert k4.use_frustum_worklist(ds.leaves.n_leaves)
+    t, code = k3.intersect_packed(rays, ds.analytic, EPSILON, alive=alive)
+    alive_mesh, t_cap = mesh_query(ds.leaves, rays, EPSILON, alive, t, code)
+    return k4.winner_inputs(rays, ds.leaves, EPSILON, alive_mesh, t_cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("front", ["primary", "bounce2"])
+def test_frustum_lists_give_k4_the_exact_winners_on_materialball(front, materialball):
+    """On the full materialball_x48 scene, K4 walking the frustum pass's
+    lists finds the winners it finds on the exact kernel's lists, bit for
+    bit; every frustum list is at least as long as the exact one."""
+    from raytracingthenextweekcuda_tpu_torch.config import EPSILON
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+
+    leaves = materialball[2].leaves
+    o, d, a, tcap, wl = _materialball_inputs(materialball, front)
+    exact = k4.build_worklist(o, d, a, leaves.leaf_bounds, EPSILON, tcap=tcap)
+    assert bool((wl.counts >= exact.counts).all())
+    t_f, c_f = k4.winner(o, d, a, tcap, wl, leaves, EPSILON)
+    t_e, c_e = k4.winner(o, d, a, tcap, exact, leaves, EPSILON)
+    assert torch.equal(c_f, c_e) and torch.equal(t_f, t_e)
+    assert int((c_f >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("front", ["primary", "bounce2"])
+def test_k4_matches_plain_on_materialball_blocks(front, materialball):
+    """K4 on the frustum lists bit for bit against its plain version on a
+    seeded sample of 24 of the wavefront's live blocks (a block's winners
+    depend on its own rays and list alone)."""
+    from raytracingthenextweekcuda_tpu_torch.config import EPSILON
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+
+    leaves = materialball[2].leaves
+    o, d, a, tcap, wl = _materialball_inputs(materialball, front)
+    t, code = k4.winner(o, d, a, tcap, wl, leaves, EPSILON)
+    live = torch.nonzero(a.view(-1, k4.BLOCK).any(dim=1)).flatten().cpu().numpy()
+    pick = np.sort(np.random.default_rng(23).choice(live, 24, replace=False))
+    blocks = torch.from_numpy(pick).to(o.device)
+    rows = (blocks[:, None] * k4.BLOCK + torch.arange(k4.BLOCK, device=o.device)).flatten()
+    sub = k4.WorkList(wl.counts[blocks], wl.order[blocks], wl.entry[blocks])
+    t_p, c_p = k4.winner_reference(o[rows], d[rows], a[rows], tcap[rows], sub, leaves,
+                                   EPSILON)
+    assert torch.equal(code[rows], c_p) and torch.equal(t[rows], t_p)
+    assert int((c_p >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_frustum_span_once_a_bounce_on_materialball(materialball):
+    """A traced image of the cell's job: `k4.frustum` lies in `k4.worklist`
+    once in each bounce."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    scene, camera, _, _ = materialball
+    cfg = RenderConfig(width=512, height=512, spp=16, bounces=5, spp_per_pass=16)
+    integrator.render(scene, camera, cfg, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        integrator.render(scene, camera, cfg, device="cuda")
+        torch.cuda.synchronize()
+    counts, parents = {}, set()
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:  # a range's GPU annotation
+            continue
+        if e.name in ("k4.frustum", "k4.worklist", "wavefront.bounce"):
+            counts[e.name] = counts.get(e.name, 0) + 1
+        if e.name == "k4.frustum":
+            parents.add(e.cpu_parent.name if e.cpu_parent else None)
+    assert counts["k4.frustum"] == counts["k4.worklist"] == counts["wavefront.bounce"]
+    assert 1 <= counts["k4.frustum"] <= cfg.bounces
+    assert parents == {"k4.worklist"}

@@ -12,6 +12,9 @@ own bar between those engines (tests/test_mesh_bvh_e2e.py:51-52): under
 (K1 shades in its own order, and merges parallelogram pairs into quads).
 """
 
+import dataclasses
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -24,7 +27,7 @@ from raytracingthenextweekcuda_tpu_torch import cli
 from raytracingthenextweekcuda_tpu_torch.apps import bench, bench_scenes
 from raytracingthenextweekcuda_tpu_torch.config import RenderConfig
 from raytracingthenextweekcuda_tpu_torch.models import integrator, presets
-from raytracingthenextweekcuda_tpu_torch.models.scene import finalize
+from raytracingthenextweekcuda_tpu_torch.models.scene import finalize, with_leaves
 from raytracingthenextweekcuda_tpu_torch.ops.cuda.launch import LAUNCHES
 
 CFG = dict(width=24, height=24, spp=4, bounces=4, spp_per_pass=4)
@@ -117,3 +120,50 @@ def test_sample_groups_follow_the_wavefront_cap(mesh, monkeypatch):
     base = _render(scene, camera, **CFG)
     monkeypatch.setattr(integrator, "_SORT_WAVEFRONT_CAP", 24 * 24)
     np.testing.assert_array_equal(base, _render(scene, camera, **CFG))
+
+
+def _count_placements(monkeypatch) -> list:
+    """The devices of every DeviceScene the integrator builds from now on."""
+    built, real = [], integrator.device_scene
+
+    def spy(scene, device):
+        built.append(str(device))
+        return real(scene, device)
+
+    monkeypatch.setattr(integrator, "device_scene", spy)
+    return built
+
+
+def test_a_finalized_scene_is_placed_once_a_device(mesh, monkeypatch):
+    """A finalized scene of numpy leaves is placed once a device: the next
+    render reads the kept DeviceScene and gives the same image, and the
+    entry leaves with its scene."""
+    scene, camera = mesh
+    built = _count_placements(monkeypatch)
+    own = dataclasses.replace(scene)  # a scene object not placed yet
+    first = _render(own, camera, **CFG)
+    np.testing.assert_array_equal(first, _render(own, camera, **CFG))
+    assert built == ["cpu"]
+    key = id(own)
+    assert key in integrator._PLACED
+    del own
+    gc.collect()
+    assert key not in integrator._PLACED
+    np.testing.assert_array_equal(first, _render(scene, camera, **CFG))
+
+
+def test_a_scene_with_tensor_leaves_is_placed_every_pass(mesh, monkeypatch):
+    """Tensor leaves may change between renders (apps/fit.py steps them in
+    place), so such a scene is placed anew and the image follows them."""
+    scene, camera = mesh
+    albedo = torch.tensor(np.asarray(scene.materials.albedo))
+    fitted = with_leaves(scene, {"materials.albedo": albedo})
+    base = _render(scene, camera, **CFG)
+    built = _count_placements(monkeypatch)
+    first = _render(fitted, camera, **CFG)
+    np.testing.assert_array_equal(first, base)
+    with torch.no_grad():
+        albedo.mul_(0.5)
+    darker = _render(fitted, camera, **CFG)
+    assert len(built) == 2 and id(fitted) not in integrator._PLACED
+    assert darker.mean() < first.mean()
