@@ -130,12 +130,13 @@ Phases, each printing one line or more:
      and K4's stats launches;
  22. the work-list kernel (csrc/worklist_kernel.cu): the exact pass of
      build_worklist against its plain torch loop on the same CUDA inputs
-     (counts and order bit for bit, entry equal in value) on the
-     benchmark's mesh (`benchmark/configs/mesh_stress`, 84 leaves) primary
-     and bounce-2 wavefronts and on mesh_large's primary wavefront (496
-     leaves); on each, the kernel's time (CUDA events) beside its bound
-     and the plain loop's time (CUDA events), with its registers and
-     spills (ptxas) and its CTAs a SM.
+     (counts and order bit for bit, entry equal in value, no leaf hit
+     outside an entered group) on the benchmark's mesh
+     (`benchmark/configs/mesh_stress`, 84 leaves) primary and bounce-2
+     wavefronts and on mesh_large's primary wavefront (496 leaves); on
+     each, the kernel's time (CUDA events) beside its bound and the plain
+     loop's time (CUDA events), with its registers and spills (ptxas), its
+     CTAs a SM and the share of slab tests its group cull keeps.
  23. K1 on the RTiOW final scene (`benchmark/configs/rtiow_final`: 488
      spheres, 385 of them moving, a thin lens of aperture 0.1) at its
      benchmark job, 1200x800, 10 spp, 50 bounces, one pass: K1 against
@@ -156,14 +157,19 @@ Phases, each printing one line or more:
      materialball_x48 scene (`benchmark/configs/materialball_x48`,
      2,247,192 triangles, 4,336 leaves): one image of its cell's job
      (512x512, 16 spp, 5 bounces) through integrator.render, every work
-     list from the packet-frustum pass (no work-list kernel launch); then
-     on the primary and bounce-2 wavefronts the frustum pass's time, its
-     bound and its peak memory beside the exact kernel's time, both lists'
-     mean length a live block, K4's winners on the two lists bit for bit,
-     K4 on the frustum lists against its plain version on
-     MATERIALBALL_BLOCKS seeded live blocks, bit for bit, and K4's times on
-     both lists beside its bound (the sample's work scaled to the live
-     blocks) and its walked and evaluated positions a live block.
+     list from the work-list kernel (one launch a K4 launch, no frustum
+     pair); then on the primary and bounce-2 wavefronts the kernel against
+     its plain version on MATERIALBALL_BLOCKS seeded live blocks and the
+     longest list (bit for bit, no leaf hit outside an entered group), its
+     time beside the frustum pass's and the stored time of the kernel
+     before its group cull (UNCULLED_MS, not measured here), its bound
+     (its group tests over every live ray), its CTAs a SM and the share of
+     slab tests the cull keeps; both lists' mean length a live block and
+     the builds' peak memory; K4's winners on the two lists bit for bit, K4
+     on the kernel's lists against its plain version on the sampled blocks,
+     bit for bit, and K4's times on both lists beside its bound (the
+     sample's work scaled to the live blocks) and its walked and evaluated
+     positions a live block.
 
 Every kernel's time stands beside its CTAs resident on one SM (its
 occupancy query at the launch's shared memory) and the waves its grid
@@ -782,15 +788,43 @@ def _phase20(dev) -> None:
           f"frame", flush=True)
 
 
-def _worklist_bound(args, n_leaves) -> tuple:
-    """The work-list kernel's bound: each live ray's slab test of every leaf
-    box (NODE_OPS each); it reads the rays, their alive flags and ceilings
-    and the leaf boxes once and writes each block's count and list."""
+def _worklist_bound(args, n_leaves, counts) -> tuple:
+    """The work-list kernel's bound: its slab tests (NODE_OPS each), the
+    live rays' group tests and the leaves of the groups they enter as its
+    plain version counts them (`counts`, WORK); it reads the rays, their
+    alive flags and ceilings and the leaf boxes once and writes each
+    block's count and list."""
     n = args[0].shape[0]
     blocks = n // 128
     nbytes = (n * (12 + 12 + 1 + 4) + 6 * n_leaves * 4
               + blocks * (4 + n_leaves * 8))
-    return _bound(nbytes, int(args[2].sum()) * n_leaves * NODE_OPS)
+    tests = counts["group_tests"] + counts["group_leaf_tests"]
+    return _bound(nbytes, tests * NODE_OPS)
+
+
+def _group_work(o, d, a, tcap, leaves) -> dict:
+    """The work-list kernel's group tests and the leaf tests its cull keeps
+    over every ray of (o, d, a, tcap), counted as its plain version counts
+    them (WORK), from one (rays, groups) slab test without the leaves':
+    {"group_tests": ..., "group_leaf_tests": ...}."""
+    from raytracingthenextweekcuda_tpu_torch.config import EPSILON
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+    from raytracingthenextweekcuda_tpu_torch.ops.wavefront_sort import safe_inv
+
+    gb = leaves.group_bounds
+    size = torch.bincount(torch.arange(leaves.n_leaves, device=o.device)
+                          // k4.WL_GROUP, minlength=gb.shape[1])
+    tests = kept = 0
+    step = 1 << 18
+    for c0 in range(0, o.shape[0], step):
+        live = a[c0: c0 + step, None]
+        gn, gf = k4._slab(gb, o[c0: c0 + step, None, :],
+                          safe_inv(d[c0: c0 + step])[:, None, :])
+        enters = ((gf >= gn) & (gf >= EPSILON) & (gn <= tcap[c0: c0 + step, None])
+                  & live)
+        tests += int(live.sum()) * gb.shape[1]
+        kept += int((enters.to(torch.int64) * size).sum())
+    return {"group_tests": tests, "group_leaf_tests": kept}
 
 
 def _phase22(dev, card, wl_regs) -> dict:
@@ -804,6 +838,7 @@ def _phase22(dev, card, wl_regs) -> dict:
     from raytracingthenextweekcuda_tpu_torch.models.scene import finalize
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import work
     from raytracingthenextweekcuda_tpu_torch.ops.fused import mesh_query
 
     bench_scene, bench_cam = program.build_scene(scenedata.load_config("mesh_stress"))
@@ -830,7 +865,13 @@ def _phase22(dev, card, wl_regs) -> dict:
                                      f"work-list kernel "
                                      f"{LAUNCHES['worklist'] - before} times")
             wl = args[4]
-            plain = k4.worklist_reference(*args[:4], ds.leaves.leaf_bounds, EPSILON)
+            work.reset()
+            plain = k4.worklist_reference(*args[:4], ds.leaves, EPSILON)
+            counts = dict(work.WORK)
+            if counts["group_misses"]:
+                raise AssertionError(f"work-list {label}/{front}: "
+                                     f"{counts['group_misses']} leaf hits outside "
+                                     f"their entered groups")
             for name in ("counts", "order", "entry"):
                 if not torch.equal(getattr(wl, name), getattr(plain, name)):
                     bad = int((getattr(wl, name) != getattr(plain, name)).sum())
@@ -838,17 +879,18 @@ def _phase22(dev, card, wl_regs) -> dict:
                                          f"values of {name} differ from the plain "
                                          f"loop's")
             ms = _event_ms(lambda: k4.build_worklist(
-                *args[:3], ds.leaves.leaf_bounds, EPSILON, tcap=args[3]), reps=10)
+                *args[:3], ds.leaves, EPSILON, tcap=args[3]), reps=10)
             plain_ms = _event_ms(lambda: k4.worklist_reference(
-                *args[:4], ds.leaves.leaf_bounds, EPSILON), reps=3)
-            bound = _worklist_bound(args, L)
+                *args[:4], ds.leaves, EPSILON), reps=3)
+            bound = _worklist_bound(args, L, counts)
             res = _residency("rtnw_worklist_occupancy", (L,), args[0].shape[0])
+            kept = counts["group_leaf_tests"] / max(1, int(args[2].sum()) * L)
             print(f"[22 work-list kernel] {label}/{front}: {rays.count} rays "
                   f"({int(args[2].sum())} to K4), {L} leaves, mean list "
                   f"{float(wl.counts.float().mean()):.2f} | counts and order bit for "
                   f"bit, entry equal | kernel {ms:.4f} ms (CUDA events, mean of 10; "
                   f"{_res(res)}; {wl_regs[0]} registers, {wl_regs[1]} bytes of "
-                  f"spills) vs bound {bound[0]:.4f} ms ({bound[1]}) | plain loop "
+                  f"spills; slab tests kept {kept:.4f}) vs bound {bound[0]:.4f} ms ({bound[1]}) | plain loop "
                   f"{plain_ms:.3f} ms (CUDA events, mean of 3) | {card}", flush=True)
             if out is None:
                 out = {"ms": ms, "plain_ms": plain_ms, "bound": bound, "res": res}
@@ -969,10 +1011,15 @@ def _phase24(dev, card, shade_regs) -> dict:
     return {"ms": ms, "plain_ms": plain_ms, "bound": bound, "res": res}
 
 
-# Live blocks of a materialball wavefront that phase 25 holds K4 to its
-# plain version on (the plain walk over a bounce-2 list of about 3,600
-# leaves takes seconds a block).
+# Live blocks of a materialball wavefront that phase 25 holds K4 and the
+# work-list kernel to their plain versions on (the plain walk over a
+# bounce-2 list of about 270 leaves takes about a second a block).
 MATERIALBALL_BLOCKS = 24
+# Stored readings, not measured by this script: the work-list kernel's
+# builds of the materialball primary and bounce-2 wavefronts before it had
+# its group cull, in ms (CUDA events, mean of 3; NVIDIA H100 80GB HBM3,
+# 700 W). No source of that kernel is kept.
+UNCULLED_MS = {"primary": 33.21, "bounce2": 15.13}
 
 
 def _frustum_bound(n: int, n_leaves: int, pairs: int) -> tuple:
@@ -985,15 +1032,28 @@ def _frustum_bound(n: int, n_leaves: int, pairs: int) -> tuple:
     return _bound(nbytes, pairs * NODE_OPS)
 
 
+def _peak_gb(dev, fn) -> tuple:
+    """(GB of device memory `fn` peaks at over what was allocated, its
+    result)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated(dev) - base) / 1e9, out
+
+
 def _phase25(dev, card) -> dict:
     """K4 and the work lists past FRUSTUM_LEAF_THRESHOLD leaves: the
     materialball_x48 scene (the cell materialball_x48.offline) rendered
-    once through the frustum route, then on its primary and bounce-2
-    wavefronts the frustum pass's lists against the exact kernel's, K4's
-    winners on the two bit for bit, and K4 on the frustum lists against
-    its plain version on a seeded sample of live blocks, with times, list
-    lengths and K4's bound. Returns the primary wavefront's entries of the
-    kernels line."""
+    once through the card's route, the work-list kernel, then on its
+    primary and bounce-2 wavefronts the kernel against its plain version
+    on a seeded sample of live blocks, its time beside the frustum pass's,
+    its bound and the cull's kept share, K4's winners on the kernel's and
+    the frustum pass's lists bit for bit, and K4 on the kernel's lists
+    against its plain version on the sample, with times, list lengths and
+    K4's bound. Returns the primary wavefront's entries of the kernels
+    line."""
     from benchmark import program, scenedata
     from raytracingthenextweekcuda_tpu_torch.config import EPSILON, RenderConfig
     from raytracingthenextweekcuda_tpu_torch.models import integrator
@@ -1009,111 +1069,138 @@ def _phase25(dev, card) -> dict:
     scene = finalize(scene)
     setup_s = time.perf_counter() - t0
     cfg = RenderConfig(width=512, height=512, spp=16, bounces=5, spp_per_pass=16)
-    # The cell's job on the main path: every work list from the frustum pass.
+    # The cell's job on the main path: every work list from the kernel.
     for key in ("K4", "worklist"):
         LAUNCHES[key] = 0
     work.reset()
     render_ms, film = _host_ms(lambda: integrator.render(scene, camera, cfg, device=dev))
-    k4_launches = LAUNCHES["K4"]
+    k4_launches, wl_launches = LAUNCHES["K4"], LAUNCHES["worklist"]
+    pairs = work.WORK["frustum_pairs"]
     ds, fronts = _wavefronts(scene, camera, cfg, 16, dev)
     leaves = ds.leaves
     L = leaves.n_leaves
-    # The first bounce's build tests every block of the wavefront; the
-    # sort compacts the later ones.
-    full = cfg.num_pixels * cfg.spp // k4.BLOCK * L
-    pairs = work.WORK["frustum_pairs"]
     mean = film.mean
-    if (not k4.use_frustum_worklist(L) or k4_launches <= 0 or LAUNCHES["worklist"]
-            or not full <= pairs <= k4_launches * full
+    if (not k4.use_frustum_worklist(L) or k4.use_frustum_route(L, dev)
+            or k4_launches <= 0 or wl_launches != k4_launches or pairs
             or not bool(torch.isfinite(mean).all()) or float(mean.mean()) <= 0.0):
         raise AssertionError(f"materialball_x48 render: {L} leaves, K4 launches "
                              f"{k4_launches}, work-list kernel launches "
-                             f"{LAUNCHES['worklist']}, frustum pairs {pairs} "
-                             f"({full} a full build), mean {float(mean.mean())}")
+                             f"{wl_launches}, frustum pairs {pairs}, mean "
+                             f"{float(mean.mean())}")
     print(f"[25 materialball main path] {int((scene.triangles.mesh_id >= 0).sum())} "
-          f"triangles, {L} leaves (the frustum route above "
-          f"{k4.FRUSTUM_LEAF_THRESHOLD}); scene data and finalize {setup_s:.1f} s | "
+          f"triangles, {L} leaves (past the JAX package's frustum line "
+          f"{k4.FRUSTUM_LEAF_THRESHOLD}; the card's route builds exact lists at "
+          f"any leaf count); scene data and finalize {setup_s:.1f} s | "
           f"one 512x512, 16-spp, 5-bounce image {render_ms:.1f} ms (host clock, "
-          f"the first on its shapes), K4 launches {k4_launches}, frustum pairs "
-          f"{pairs} ({pairs / full:.2f} full builds), work-list kernel launches 0 "
-          f"| {card}", flush=True)
+          f"the first on its shapes), K4 launches {k4_launches}, work-list kernel "
+          f"launches {wl_launches}, frustum pairs 0 | {card}", flush=True)
+
+    def rows_of(blocks):
+        return (blocks[:, None] * k4.BLOCK
+                + torch.arange(k4.BLOCK, device=dev)).flatten()
 
     out = {}
     lb = leaves.leaf_bounds
     for front, rays, alive in fronts:
         t3, c3 = k3.intersect_packed(rays, ds.analytic, EPSILON, alive=alive)
         alive_mesh, t_cap = mesh_query(leaves, rays, EPSILON, alive, t3, c3)
+        peak, (o, d, a, tcap, wl) = _peak_gb(dev, lambda: k4.winner_inputs(
+            rays, leaves, EPSILON, alive_mesh, t_cap))
         work.reset()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        base = torch.cuda.memory_allocated(dev)
-        o, d, a, tcap, wl = k4.winner_inputs(rays, leaves, EPSILON, alive_mesh, t_cap)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated(dev) - base
+        fr_peak, fr = _peak_gb(dev, lambda: k4.build_worklist(
+            o, d, a, lb, EPSILON, tcap=tcap, frustum=True))
         pairs = work.WORK["frustum_pairs"]
-        exact = k4.build_worklist(o, d, a, lb, EPSILON, tcap=tcap, frustum=False)
         if (pairs != o.shape[0] // k4.BLOCK * L
-                or not bool((wl.counts >= exact.counts).all())):
+                or not bool((fr.counts >= wl.counts).all())):
             raise AssertionError(f"materialball {front}: {pairs} frustum pairs, or a "
                                  f"frustum list shorter than the exact one")
+        ms = _event_ms(lambda: k4.build_worklist(o, d, a, leaves, EPSILON,
+                                                 tcap=tcap), reps=10)
         fr_ms = _event_ms(lambda: k4.build_worklist(o, d, a, lb, EPSILON, tcap=tcap,
                                                     frustum=True), reps=3)
-        ex_ms = _event_ms(lambda: k4.build_worklist(o, d, a, lb, EPSILON, tcap=tcap,
-                                                    frustum=False), reps=3)
-        t_f, c_f = k4.winner(o, d, a, tcap, wl, leaves, EPSILON)
-        t_e, c_e = k4.winner(o, d, a, tcap, exact, leaves, EPSILON)
+        t_e, c_e = k4.winner(o, d, a, tcap, wl, leaves, EPSILON)
+        t_f, c_f = k4.winner(o, d, a, tcap, fr, leaves, EPSILON)
         _check_equal(f"K4 materialball/{front}: frustum vs exact lists", t_f, c_f,
                      t_e, c_e)
-        k4f_ms = _event_ms(lambda: k4.winner(o, d, a, tcap, wl, leaves, EPSILON), reps=5)
-        k4e_ms = _event_ms(lambda: k4.winner(o, d, a, tcap, exact, leaves, EPSILON),
-                           reps=5)
+        k4e_ms = _event_ms(lambda: k4.winner(o, d, a, tcap, wl, leaves, EPSILON), reps=5)
+        k4f_ms = _event_ms(lambda: k4.winner(o, d, a, tcap, fr, leaves, EPSILON), reps=5)
         live = a.view(-1, k4.BLOCK).any(dim=1)
         n_live = int(live.sum())
         _, _, st = k4.winner(o, d, a, tcap, wl, leaves, EPSILON, stats=True)
         st = st[live].float()
+        listed = (float(fr.counts[live].float().mean()),
+                  float(wl.counts[live].float().mean()))
+        del fr
 
-        # K4 against its plain version on sampled live blocks: a block's
-        # winners depend on its own rays and list alone. The sample's work,
-        # scaled to the live blocks, gives K4's bound.
-        pick = np.sort(np.random.default_rng(25).choice(
+        # The kernel against its plain version on sampled live blocks and
+        # the longest list, K4 against its plain version on the sample: a
+        # block's list and winners depend on its own rays alone. The
+        # kernel's bound counts its group tests over every live ray; K4's
+        # scales the sample's work to the live blocks.
+        sample = torch.from_numpy(np.sort(np.random.default_rng(25).choice(
             torch.nonzero(live).flatten().cpu().numpy(), MATERIALBALL_BLOCKS,
-            replace=False))
-        blocks = torch.from_numpy(pick).to(dev)
-        rows = (blocks[:, None] * k4.BLOCK
-                + torch.arange(k4.BLOCK, device=dev)).flatten()
-        sub = k4.WorkList(wl.counts[blocks], wl.order[blocks], wl.entry[blocks])
+            replace=False))).to(dev)
+        blocks = torch.unique(torch.cat([sample, wl.counts.argmax().view(1)]))
+        rows = rows_of(blocks)
+        work.reset()
+        plain_wl = k4.worklist_reference(o[rows], d[rows], a[rows], tcap[rows],
+                                         leaves, EPSILON)
+        for name in ("counts", "order", "entry"):
+            if not torch.equal(getattr(wl, name)[blocks], getattr(plain_wl, name)):
+                raise AssertionError(f"work-list kernel materialball/{front}: {name} "
+                                     f"differs from the plain version's on the "
+                                     f"sampled blocks")
+        if work.WORK["group_misses"]:
+            raise AssertionError(f"work-list materialball/{front}: "
+                                 f"{work.WORK['group_misses']} leaf hits outside "
+                                 f"their entered groups")
+        counted = {k: work.WORK[k] for k in ("group_tests", "group_leaf_tests")}
+        if _group_work(o[rows], d[rows], a[rows], tcap[rows], leaves) != counted:
+            raise AssertionError(f"work-list materialball/{front}: the group count "
+                                 f"over the wavefront disagrees with the plain "
+                                 f"version's {counted} on its blocks")
+        wl_counts = _group_work(o, d, a, tcap, leaves)
+        kept = wl_counts["group_leaf_tests"] / max(1, int(a.sum()) * L)
+        wl_bound = _worklist_bound((o, d, a), L, wl_counts)
+        wl_res = _residency("rtnw_worklist_occupancy", (L,), o.shape[0])
+        rows = rows_of(sample)
+        sub = k4.WorkList(wl.counts[sample], wl.order[sample], wl.entry[sample])
         work.reset()
         plain_ms, (t_p, c_p) = _host_ms(lambda: k4.winner_reference(
             o[rows], d[rows], a[rows], tcap[rows], sub, leaves, EPSILON))
-        _check_equal(f"K4 materialball/{front}: sampled blocks vs plain", t_f[rows],
-                     c_f[rows], t_p, c_p)
-        scale = n_live / MATERIALBALL_BLOCKS
+        _check_equal(f"K4 materialball/{front}: sampled blocks vs plain", t_e[rows],
+                     c_e[rows], t_p, c_p)
+        scale = n_live / sample.numel()
         counts = {k: v * scale for k, v in work.WORK.items()}
         bound = _k4_bound(o, wl, leaves, counts)
         res = _residency("rtnw_bvh_winner_occupancy", (), o.shape[0])
         fr_bound = _frustum_bound(o.shape[0], L, pairs)
-        listed = (float(wl.counts[live].float().mean()),
-                  float(exact.counts[live].float().mean()))
         print(f"[25 materialball {front}] {rays.count} rays, {int(a.sum())} to K4, "
-              f"{n_live} live blocks | lists a live block: frustum {listed[0]:.1f}, "
-              f"exact {listed[1]:.1f} | frustum pass {fr_ms:.3f} ms ({pairs} pairs; "
-              f"bound {fr_bound[0]:.4f} ms, {fr_bound[1]}; peak {peak / 1e9:.2f} GB "
-              f"over its inputs), exact kernel {ex_ms:.3f} ms (CUDA events, mean of 3) "
-              f"| K4 on the frustum lists {k4f_ms:.4f} ms, walked "
-              f"{float(st[:, 0].mean()):.1f} evaluated {float(st[:, 1].mean()):.1f} "
-              f"a live block ({_res(res)}) vs "
+              f"{n_live} live blocks | work-list kernel {ms:.3f} ms (CUDA events, "
+              f"mean of 10; {_res(wl_res)}; slab tests kept {kept:.4f}; peak "
+              f"{peak:.2f} GB over its inputs) vs bound {wl_bound[0]:.4f} ms "
+              f"({wl_bound[1]}; its group tests over every live ray), the kernel "
+              f"without the group cull {UNCULLED_MS[front]} ms (a stored reading, "
+              f"not measured here), the frustum pass {fr_ms:.3f} ms ({pairs} "
+              f"pairs; bound {fr_bound[0]:.4f} ms, {fr_bound[1]}; peak {fr_peak:.2f} "
+              f"GB) | lists a live block: frustum {listed[0]:.1f}, exact "
+              f"{listed[1]:.1f}, longest {int(wl.counts.max())}; equal to the plain "
+              f"version on {blocks.numel()} blocks, the sample and the longest | K4 "
+              f"on the exact lists {k4e_ms:.4f} ms, walked {float(st[:, 0].mean()):.1f} evaluated "
+              f"{float(st[:, 1].mean()):.1f} a live block ({_res(res)}) vs "
               f"bound {bound[0]:.4f} ms ({bound[1]}; the plain version's work on "
-              f"{MATERIALBALL_BLOCKS} sampled blocks x {scale:.1f}); on the exact "
-              f"lists {k4e_ms:.4f} ms (CUDA events, mean of 5) | winners bit for bit "
+              f"{sample.numel()} sampled blocks x {scale:.1f}); on the frustum "
+              f"lists {k4f_ms:.4f} ms (CUDA events, mean of 5) | winners bit for bit "
               f"on the two lists, and against the plain version on the sample "
               f"({plain_ms:.0f} ms, host clock) | {card}", flush=True)
         if work.WORK["chunk_misses"]:
             raise AssertionError(f"K4 materialball/{front}: "
                                  f"{work.WORK['chunk_misses']} candidates outside "
                                  f"entered chunks")
-        out.setdefault(front, {"k4_ms": k4f_ms, "k4_bound": bound, "res": res,
-                               "launches": k4_launches, "frustum_ms": fr_ms,
-                               "frustum_bound": fr_bound})
+        out.setdefault(front, {"k4_ms": k4e_ms, "k4_bound": bound, "res": res,
+                               "launches": k4_launches, "wl_ms": ms,
+                               "wl_bound": wl_bound, "wl_res": wl_res,
+                               "frustum_ms": fr_ms, "frustum_bound": fr_bound})
     return out["primary"]
 
 
@@ -2159,13 +2246,17 @@ def main() -> None:
               shade["res"]),
         # Phase 25's primary wavefront; the plain versions ran on a sample
         # of blocks only, so no plain time.
-        entry("K4 bvh_winner_kernel on materialball_x48's frustum lists",
+        entry("K4 bvh_winner_kernel on materialball_x48",
               "bvh_winner_kernel.cu", f"{ref}bvh_winner_kernel.py:201",
               ball["launches"], 0.0, ball["k4_ms"], None, ball["k4_bound"],
               ball["res"]),
+        entry("work-list worklist_kernel on materialball_x48",
+              "worklist_kernel.cu", f"none (XLA ops: {ref}bvh_winner_kernel.py:96)",
+              ball["launches"], 0.0, ball["wl_ms"], None, ball["wl_bound"],
+              ball["wl_res"]),
         {**entry("frustum pass _build_worklist_frustum on materialball_x48",
                  "", f"none (XLA ops: {ref}bvh_winner_kernel.py:502)",
-                 ball["launches"], 0.0, ball["frustum_ms"], None,
+                 0, 0.0, ball["frustum_ms"], None,
                  ball["frustum_bound"], (None, None)),
          "route": "torch",
          "source": "raytracingthenextweekcuda_tpu_torch/ops/cuda/bvh_winner_kernel.py"},

@@ -260,13 +260,14 @@ def run_mesh_large(width: int = 512, height: int = 512, spp: int = 8,
     here its 261,120-triangle stand-in) through the tile-BVH at 8 spp and 5
     bounces. In place of the reference's `streaming` flag, a decision of
     its TPU kernel, it records the leaf count and `frustum`, whether the
-    packet-frustum work-list build ran (above 2048 leaves). No reference
-    number exists at this scale: `vs_baseline` is null."""
+    packet-frustum work-list build ran (never on the card,
+    `use_frustum_route`). No reference number exists at this scale:
+    `vs_baseline` is null."""
     from raytracingthenextweekcuda_tpu_torch.apps.bench_scenes import (
         large_mesh_scene,
     )
     from raytracingthenextweekcuda_tpu_torch.ops.cuda.bvh_winner_kernel import (
-        use_frustum_worklist,
+        use_frustum_route,
     )
 
     device = _cuda_device(device)
@@ -276,7 +277,7 @@ def run_mesh_large(width: int = 512, height: int = 512, spp: int = 8,
     result = _time_mesh_scene(scene, camera, cfg, asset,
                               "paths/s, tile-BVH large mesh 512x512",
                               device=device, keep_film=keep_film)
-    result["frustum"] = use_frustum_worklist(result["leaves"])
+    result["frustum"] = use_frustum_route(result["leaves"], device)
     result["vs_baseline"] = None
     return result
 

@@ -94,6 +94,7 @@ SIGNATURES: dict[str, tuple] = {
     "rtnw_worklist": (  # the exact work-list build
         _vp, _vp, _vp, _vp,       # origin, direction, alive (u8), tcap
         _ci, _vp, _ci,            # n_blocks, leaf_bounds, n_leaves
+        _vp,                      # group_bounds (6, ceil(n_leaves / 32))
         _cf,                      # tmin
         _vp, _vp, _vp,            # counts, order (int32*), entry (float*) out
         _vp,                      # cudaStream_t

@@ -6,11 +6,14 @@ raytracingthenextweekcuda_tpu/ops/pallas/bvh_winner_kernel.py).
    reduce per 128-ray block to (any hit, nearest entry) per leaf, and sort
    each block's hit leaves by entry distance. A leaf entered only behind a
    ray's analytic ceiling `tcap` is not listed for it. On CUDA tensors this
-   exact pass is one launch of csrc/worklist_kernel.cu; on CPU tensors its
-   plain version `worklist_reference`, a chunked torch loop, runs. Above
-   FRUSTUM_LEAF_THRESHOLD leaves a conservative packet-frustum pass in
-   torch, one interval slab test per block, replaces the per-ray pass; its
-   lists are supersets and K4's per-ray re-check makes the extras inert.
+   exact pass is one launch of csrc/worklist_kernel.cu, which tests the
+   box of each group of WL_GROUP leaves (`group_bounds`) before its
+   leaves; on CPU tensors its plain version `worklist_reference`, a
+   chunked torch loop, runs. A conservative packet-frustum pass in torch,
+   one interval slab test per block, replaces the per-ray pass on CPU
+   tensors above FRUSTUM_LEAF_THRESHOLD leaves, as in the JAX package
+   (`use_frustum_route`); its lists are supersets and K4's per-ray
+   re-check makes the extras inert.
 2. K4 (csrc/bvh_winner_kernel.cu): per block, walk its list front to back
    up to the block's static horizon (the largest live ray's ceiling: its
    `tcap` capped by its padded root-box exit); for each leaf re-check the
@@ -50,6 +53,7 @@ from raytracingthenextweekcuda_tpu_torch.ops.cuda.intersect_kernel import (
 from raytracingthenextweekcuda_tpu_torch.ops.cuda.work import (
     WORK,
     chunk_triangles,
+    count_groups,
     count_leaves,
     tile_triangles,
 )
@@ -74,14 +78,37 @@ _EXIT_ABS = 1e-4
 # kSlack; the chunk width, kChunk, is ops/bvh_tile.CHUNK).
 _CHUNK_SLACK = 1.0 + 2.0 ** -16
 
-# The most leaves the work-list kernel takes: the sort keys of the next
-# power of two in the card's 227 KB of shared memory a block.
-WORKLIST_MAX_LEAVES = 16384
+# Consecutive leaves (in DFS order) of a work-list group: the kernel tests
+# a group's box before the group's leaves, a warp's lane a leaf.
+WL_GROUP = 32
 
 
 def use_frustum_worklist(n_leaves: int) -> bool:
-    """The packet-frustum pass above FRUSTUM_LEAF_THRESHOLD leaves."""
+    """The packet-frustum pass above FRUSTUM_LEAF_THRESHOLD leaves, as the
+    JAX package takes it."""
     return n_leaves > FRUSTUM_LEAF_THRESHOLD
+
+
+def use_frustum_route(n_leaves: int, device) -> bool:
+    """Whether the work lists of `n_leaves` leaves on `device` come from the
+    packet-frustum pass: never on the card, where the work-list kernel
+    builds the exact lists at any leaf count; elsewhere as
+    use_frustum_worklist."""
+    return torch.device(device).type != "cuda" and use_frustum_worklist(n_leaves)
+
+
+def group_bounds(leaf_bounds: torch.Tensor) -> torch.Tensor:
+    """(6, G) float32: the boxes of the work-list groups of the leaf boxes
+    `leaf_bounds` (6, L), G = ceil(L / WL_GROUP): each the exact minimum
+    and maximum of its WL_GROUP consecutive leaves' boxes (the last group
+    of the leaves left over)."""
+    L = leaf_bounds.shape[1]
+    pad = -L % WL_GROUP
+    inf = float("inf")
+    lo = torch.nn.functional.pad(leaf_bounds[0:3], (0, pad), value=inf)
+    hi = torch.nn.functional.pad(leaf_bounds[3:6], (0, pad), value=-inf)
+    return torch.cat([lo.view(3, -1, WL_GROUP).amin(dim=2),
+                      hi.view(3, -1, WL_GROUP).amax(dim=2)]).contiguous()
 
 
 class LeafScene(NamedTuple):
@@ -96,6 +123,7 @@ class LeafScene(NamedTuple):
     aos: torch.Tensor          # (L * tile, 12) float32: trih column by column
     max_count: int             # the largest leaf_count
     chunk_bounds: torch.Tensor  # (L, 6, C) float32: boxes of 32-column chunks
+    group_bounds: torch.Tensor  # (6, G) float32: boxes of WL_GROUP leaves
 
     @property
     def n_leaves(self) -> int:
@@ -119,8 +147,9 @@ def real_columns(normals: torch.Tensor, first: torch.Tensor,
 def leaf_scene(packed, device) -> LeafScene:
     """K4's arrays of a tile-BVH pack, on `device`: the leaf boxes and
     tiles, the Havel geometry rows, each tile's real columns, the rows
-    column by column (16-byte vectors that K4 reads a chunk from) and the
-    chunk boxes that finalize built (ops/bvh_tile.chunk_bounds)."""
+    column by column (16-byte vectors that K4 reads a chunk from), the
+    chunk boxes that finalize built (ops/bvh_tile.chunk_bounds) and the
+    work-list groups' boxes."""
     if packed.leaf_bounds is None:
         raise ValueError("scene packed without a tile-BVH (models.scene.finalize)")
     lb = torch.from_numpy(packed.leaf_bounds.copy())
@@ -139,6 +168,7 @@ def leaf_scene(packed, device) -> LeafScene:
         aos=trih.t().contiguous().to(device),
         max_count=int(count.max()),
         chunk_bounds=torch.from_numpy(packed.chunk_bounds).to(device),
+        group_bounds=group_bounds(lb).to(device),
     )
 
 
@@ -158,18 +188,26 @@ def _sorted_lists(hitb: torch.Tensor, tnb: torch.Tensor) -> WorkList:
     return WorkList(hitb.sum(dim=1).to(torch.int32), order.to(torch.int32), entry)
 
 
+def _boxes(leaves) -> tuple:
+    """(leaf boxes (6, L), group boxes (6, G)) of `leaves`: a LeafScene, or
+    its leaf boxes alone, whose groups are then derived."""
+    if isinstance(leaves, LeafScene):
+        return leaves.leaf_bounds, leaves.group_bounds
+    return leaves, group_bounds(leaves)
+
+
 def build_worklist(origin: torch.Tensor, direction: torch.Tensor,
-                   alive: torch.Tensor, leaf_bounds: torch.Tensor, tmin: float,
+                   alive: torch.Tensor, leaves, tmin: float,
                    tcap: torch.Tensor | None = None,
                    frustum: bool = False) -> WorkList:
     """Leaf work lists of 128-ray blocks.
 
     origin, direction (N, 3) with N a multiple of BLOCK; alive (N,) bool;
-    leaf_bounds (6, L); tcap (N,) each ray's analytic ceiling (BIG when
-    None). `frustum` selects the packet-frustum pass (see the module
-    docstring; callers resolve it with use_frustum_worklist). The exact
-    pass launches the work-list kernel on CUDA tensors (or raises) and runs
-    `worklist_reference` on CPU tensors.
+    `leaves` the LeafScene, or its leaf boxes (6, L) alone; tcap (N,) each
+    ray's analytic ceiling (BIG when None). `frustum` selects the
+    packet-frustum pass (see the module docstring; callers resolve it with
+    use_frustum_route). The exact pass launches the work-list kernel on
+    CUDA tensors (or raises) and runs `worklist_reference` on CPU tensors.
     """
     n = origin.shape[0]
     if n % BLOCK:
@@ -177,22 +215,33 @@ def build_worklist(origin: torch.Tensor, direction: torch.Tensor,
     dev = origin.device
     if tcap is None:
         tcap = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    leaf_bounds, groups = _boxes(leaves)
     if frustum:
         with span("k4.frustum"):
             return _build_worklist_frustum(origin, direction, alive, leaf_bounds,
                                            tmin, tcap)
-    return launch.by_device(dev, _launch_worklist, worklist_reference, origin,
-                            direction, alive, tcap, leaf_bounds, tmin)
+    return launch.by_device(dev, _launch_worklist, _worklist_reference, origin,
+                            direction, alive, tcap, leaf_bounds, groups, tmin)
 
 
-def worklist_reference(origin, direction, alive, tcap, leaf_bounds,
+def worklist_reference(origin, direction, alive, tcap, leaves,
                        tmin: float) -> WorkList:
     """Plain version of the work-list kernel: the exact pass in torch, over
     chunks of _WL_CHUNK_RAYS rays, each (rays, leaves) slab test and hit
-    mask a tensor, then the block reductions and a stable sort."""
+    mask a tensor, then the block reductions and a stable sort. `leaves`
+    as build_worklist takes it. Its lists never depend on the group boxes;
+    it counts the kernel's group cull in WORK (ops/cuda/work.py)."""
+    return _worklist_reference(origin, direction, alive, tcap, *_boxes(leaves),
+                               tmin)
+
+
+def _worklist_reference(origin, direction, alive, tcap, leaf_bounds, groups,
+                        tmin: float) -> WorkList:
     n = origin.shape[0]
     L = leaf_bounds.shape[1]
     lo, hi = leaf_bounds[0:3], leaf_bounds[3:6]
+    leaf_group = torch.arange(L, device=origin.device) // WL_GROUP
+    group_size = torch.bincount(leaf_group, minlength=groups.shape[1])
     hits, entries = [], []
     for c0 in range(0, n, _WL_CHUNK_RAYS):
         o = origin[c0: c0 + _WL_CHUNK_RAYS]
@@ -205,9 +254,13 @@ def worklist_reference(origin, direction, alive, tcap, leaf_bounds,
             tna, tfa = torch.minimum(t0, t1), torch.maximum(t0, t1)
             tn = tna if tn is None else torch.maximum(tn, tna)
             tf = tfa if tf is None else torch.minimum(tf, tfa)
-        hit = ((tf >= tn) & (tf >= tmin)
-               & (tn <= tcap[c0: c0 + _WL_CHUNK_RAYS, None])
-               & alive[c0: c0 + _WL_CHUNK_RAYS, None])
+        cap = tcap[c0: c0 + _WL_CHUNK_RAYS, None]
+        live = alive[c0: c0 + _WL_CHUNK_RAYS, None]
+        hit = (tf >= tn) & (tf >= tmin) & (tn <= cap) & live
+        gn, gf = _slab(groups, o[:, None, :], safe_inv(d)[:, None, :])
+        enters = (gf >= gn) & (gf >= tmin) & (gn <= cap) & live
+        count_groups(int(live.sum()) * groups.shape[1], enters, group_size,
+                     hit & ~enters[:, leaf_group])
         tnm = torch.where(hit, tn, torch.full_like(tn, float("inf")))
         hits.append(hit.view(-1, BLOCK, L).any(dim=1))
         entries.append(tnm.view(-1, BLOCK, L).amin(dim=1))
@@ -257,7 +310,7 @@ def _build_worklist_frustum(origin, direction, alive, leaf_bounds, tmin,
     return _sorted_lists(hitb, tn_lo)
 
 
-def _launch_worklist(origin, direction, alive, tcap, leaf_bounds,
+def _launch_worklist(origin, direction, alive, tcap, leaf_bounds, groups,
                      tmin: float) -> WorkList:
     dev = origin.device
     n = origin.shape[0]
@@ -266,12 +319,12 @@ def _launch_worklist(origin, direction, alive, tcap, leaf_bounds,
                                    (direction, torch.float32, (n, 3)),
                                    (alive, torch.bool, (n,)),
                                    (tcap, torch.float32, (n,)),
-                                   (leaf_bounds, torch.float32, (6, L))))
+                                   (leaf_bounds, torch.float32, (6, L)),
+                                   (groups, torch.float32, (6, -(-L // WL_GROUP)))))
     if n % BLOCK:
         raise ValueError(f"worklist input: {n} rays is not a multiple of {BLOCK}")
-    if not 1 <= L <= WORKLIST_MAX_LEAVES:
-        raise ValueError(f"worklist input: {L} leaves, the kernel takes 1 to "
-                         f"{WORKLIST_MAX_LEAVES}")
+    if L < 1:
+        raise ValueError("worklist input: no leaf")
     B = n // BLOCK
     counts = torch.empty((B,), dtype=torch.int32, device=dev)
     order = torch.empty((B, L), dtype=torch.int32, device=dev)
@@ -280,8 +333,9 @@ def _launch_worklist(origin, direction, alive, tcap, leaf_bounds,
         return WorkList(counts, order, entry)
     launch.call("work-list", "rtnw_worklist", dev, origin.data_ptr(),
                 direction.data_ptr(), alive.data_ptr(), tcap.data_ptr(), int(B),
-                leaf_bounds.data_ptr(), int(L), float(tmin), counts.data_ptr(),
-                order.data_ptr(), entry.data_ptr(), count=("worklist",))
+                leaf_bounds.data_ptr(), int(L), groups.data_ptr(), float(tmin),
+                counts.data_ptr(), order.data_ptr(), entry.data_ptr(),
+                count=("worklist",))
     return WorkList(counts, order, entry)
 
 
@@ -327,8 +381,8 @@ def winner_inputs(rays, scene: LeafScene, tmin: float, alive=None, t_cap=None):
     if t_cap is not None:
         tcap[:n] = torch.clamp_max(t_cap.to(f32), BIG)
     with span("k4.worklist"):
-        wl = build_worklist(origin, direction, alive, scene.leaf_bounds, tmin,
-                            tcap=tcap, frustum=use_frustum_worklist(scene.n_leaves))
+        wl = build_worklist(origin, direction, alive, scene, tmin, tcap=tcap,
+                            frustum=use_frustum_route(scene.n_leaves, dev))
     return origin, direction, alive, tcap, wl
 
 
@@ -524,7 +578,8 @@ def winner_reference(origin, direction, alive, tcap, wl: WorkList,
     return t_out, code_out
 
 
-__all__ = ["BLOCK", "FRUSTUM_LEAF_THRESHOLD", "LeafScene", "WORKLIST_MAX_LEAVES",
-           "WorkList", "build_worklist", "intersect_packed_bvh", "leaf_scene",
-           "chunk_entries", "real_columns", "use_frustum_worklist", "winner",
+__all__ = ["BLOCK", "FRUSTUM_LEAF_THRESHOLD", "LeafScene", "WL_GROUP",
+           "WorkList", "build_worklist",
+           "chunk_entries", "group_bounds", "intersect_packed_bvh", "leaf_scene",
+           "real_columns", "use_frustum_route", "use_frustum_worklist", "winner",
            "winner_inputs", "winner_reference", "worklist_reference"]

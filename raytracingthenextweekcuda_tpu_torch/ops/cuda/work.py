@@ -15,7 +15,13 @@ triangle_tests is the share of the leaves' triangles K4 tests; and
 `chunk_misses`, the hits below a ray's best in chunks it does not enter,
 which must stay 0: the cull is sound where it leaves out no candidate.
 The packet-frustum work-list pass counts the (block, leaf) pairs it
-tests, `frustum_pairs`, from the shapes alone (no device read).
+tests, `frustum_pairs`, from the shapes alone (no device read). The work-list
+kernel's plain version counts what the kernel's group cull leaves:
+`group_tests`, the live rays' tests of the boxes of 32-leaf groups;
+`group_leaf_tests`, the leaves of the groups they enter, so that
+group_leaf_tests / (live rays x leaves) is the share of slab tests the cull
+keeps; and `group_misses`, the leaf hits of rays that miss the leaf's group,
+which must stay 0.
 chip_smoke.py sets the counts to zero with `reset`, runs a plain version
 and turns them into the kernel's bound.
 """
@@ -28,7 +34,8 @@ from raytracingthenextweekcuda_tpu_torch.ops.bvh_tile import CHUNK
 
 WORK = {"bounces": 0, "box_tests": 0, "leaf_visits": 0, "triangle_tests": 0,
         "block_leaves": 0, "chunk_tests": 0, "chunk_triangle_tests": 0,
-        "chunk_misses": 0, "frustum_pairs": 0}
+        "chunk_misses": 0, "frustum_pairs": 0, "group_tests": 0,
+        "group_leaf_tests": 0, "group_misses": 0}
 
 
 def reset() -> None:
@@ -61,4 +68,15 @@ def count_leaves(rays: torch.Tensor, triangles: torch.Tensor) -> None:
     WORK["triangle_tests"] += int((rays.to(torch.int64) * triangles).sum())
 
 
-__all__ = ["WORK", "chunk_triangles", "count_leaves", "reset", "tile_triangles"]
+def count_groups(tests: int, enters: torch.Tensor, group_size: torch.Tensor,
+                 misses: torch.Tensor) -> None:
+    """Add the work-list group cull to WORK: `tests` group-box tests,
+    `enters` (rays, G) the groups each ray enters, `group_size` (G,) their
+    leaves, `misses` (rays, L) the leaf hits outside an entered group."""
+    WORK["group_tests"] += tests
+    WORK["group_leaf_tests"] += int((enters.to(torch.int64) * group_size).sum())
+    WORK["group_misses"] += int(misses.sum())
+
+
+__all__ = ["WORK", "chunk_triangles", "count_groups", "count_leaves", "reset",
+           "tile_triangles"]

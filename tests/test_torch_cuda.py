@@ -8,12 +8,15 @@ bit for bit, K4 also for every count of rays that need a leaf, on rays
 that enter none, one, some and every 32-column chunk of a leaf (a partial
 last chunk among them), on ties in one chunk, between chunks and between
 leaves, on leaves the re-check skips mid list, and on the benchmark
-mesh's wavefronts, and K4's stats counters equal to the plain version's; the work-list kernel's lists equal to its plain torch loop's;
-K1 bit for bit on the 488 spheres of the RTiOW final scene; on the
-2,247,192 triangles of the materialball_x48 scene (past the frustum
-pass's leaf threshold), K4's winners on the frustum lists equal to those
-on the exact lists and to its plain version's on sampled blocks, and the
-frustum pass's span once a bounce; the shade
+mesh's wavefronts, and K4's stats counters equal to the plain version's;
+the work-list kernel's lists equal to its plain torch loop's, from 1 to
+16,384 leaves and on blocks that list every leaf; K1 bit for bit on the
+488 spheres of the RTiOW final scene; on the 2,247,192 triangles of the
+materialball_x48 scene (past the JAX package's frustum line), the
+work-list kernel's lists equal to its plain version's on sampled blocks,
+K4's winners on the frustum lists equal to those on the kernel's and to
+its plain version's on sampled blocks, and the kernel launched once a
+bounce with no frustum span; the shade
 kernel bit for bit against its plain torch version on wavefronts with dead
 rays, with and without Russian roulette and the sky, on all 8 material
 kinds and without Lambertian, over a whole sorted image, and out of the
@@ -645,16 +648,20 @@ def test_k4_matches_plain_on_benchmark_mesh(bounces, cuda_device):
     assert int((c4 >= 0).sum()) > 0
 
 
-def _leaf_boxes(n_leaves, n_rays, seed, device, twins=False):
+def _leaf_boxes(n_leaves, n_rays, seed, device, twins=False, hub=False):
     """build_worklist's exact-pass inputs on `device`: `n_leaves` random
-    boxes in [-1, 1]^3 (leaves 0 and 1 the same box with `twins`) and
-    `n_rays` rays aimed into them, a fifth dead, two blocks wholly dead,
-    some direction components exactly +-0, one live ray with a NaN origin
+    boxes in [-1, 1]^3 (leaves 0 and 1 the same box with `twins`; every box
+    widened to hold the origin with `hub`, and the 128 rays of block 3
+    live and starting there, so that they hit every leaf) and `n_rays`
+    rays aimed into them, a fifth dead, two blocks wholly dead, some
+    direction components exactly +-0, one live ray with a NaN origin
     coordinate, random ceilings: (origin, direction, alive, tcap,
     leaf_bounds)."""
     g = np.random.default_rng(seed)
     c = g.uniform(-1, 1, (n_leaves, 3))
     h = g.uniform(0.02, 0.3, (n_leaves, 3))
+    if hub:
+        h = np.maximum(h, np.abs(c) + 0.01)
     lb = np.concatenate([c - h, c + h], axis=1).T.astype(np.float32)
     if twins:
         lb[:, 1] = lb[:, 0]
@@ -666,6 +673,8 @@ def _leaf_boxes(n_leaves, n_rays, seed, device, twins=False):
     alive = g.random(n_rays) > 0.2
     alive[128:384] = False
     o[5, 2], alive[5] = np.nan, True
+    if hub:
+        o[384:512], alive[384:512] = 0.0, True
     tcap = g.uniform(1.0, 6.0, n_rays)
     return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in (
         o.astype(np.float32), d.astype(np.float32), alive, tcap.astype(np.float32),
@@ -675,15 +684,21 @@ def _leaf_boxes(n_leaves, n_rays, seed, device, twins=False):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
     "primary", "primary_tcap", "bounce1", "bounce1_tcap", "leaves_1", "leaves_84",
-    "leaves_340", "leaves_2048", "twin_leaves"])
+    "leaves_340", "leaves_2048", "twin_leaves", "leaves_2049", "leaves_4336",
+    "leaves_16384", "hub_2049", "hub_4336", "hub_16384", "leaves_16385",
+    "hub_163840"])
 def test_worklist_kernel_matches_plain_on_card(case, cuda_device, mesh_scene):
     """The exact work-list pass, one launch of its kernel a build, against
     its plain torch loop on the same CUDA inputs: counts and order bit for
     bit, entry equal in value. The mesh stand-in's primary and bounce-1
     wavefronts (with and without the analytic ceilings), and random leaf
-    boxes at 1, 84 (the benchmark's mesh), 340 (mesh_large) and 2048 leaves
-    (the most the exact pass takes) with dead rays and dead blocks; two
-    leaves with the same box, whose tied entries keep leaf order."""
+    boxes at 1 (one group), 84 (the benchmark's mesh), 340 (mesh_large),
+    2048 (the JAX package's frustum line), 2049, 4336 (materialball_x48),
+    16384 and 16385 leaves with dead rays and dead blocks; at 2049 to
+    163840 also a block whose rays hit every leaf, past the sort keys the
+    kernel keeps in shared memory (at 163840 its group words alone pass
+    the 48 KB a launch gets without raising its limit); two leaves with
+    the same box, whose tied entries keep leaf order."""
     from raytracingthenextweekcuda_tpu_torch.config import EPSILON
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
@@ -701,7 +716,8 @@ def test_worklist_kernel_matches_plain_on_card(case, cuda_device, mesh_scene):
     else:
         n_leaves = 2 if case == "twin_leaves" else int(case.split("_")[1])
         o, d, a, tcap, lb = _leaf_boxes(n_leaves, 128 * 32, n_leaves, cuda_device,
-                                        twins=case == "twin_leaves")
+                                        twins=case == "twin_leaves",
+                                        hub=case.startswith("hub"))
     cap = None if wavefront and not case.endswith("tcap") else tcap
     before = LAUNCHES["worklist"]
     wl = k4.build_worklist(o, d, a, lb, EPSILON, tcap=cap)
@@ -715,6 +731,8 @@ def test_worklist_kernel_matches_plain_on_card(case, cuda_device, mesh_scene):
     assert int(wl.counts.sum()) > 0
     if not wavefront:
         assert int(wl.counts[1:3].sum()) == 0  # the dead blocks list nothing
+    if case.startswith("hub"):
+        assert int(wl.counts[3]) == n_leaves
     if case == "twin_leaves":
         both = (wl.counts == 2).nonzero().flatten()
         assert both.numel() > 0
@@ -1178,8 +1196,9 @@ def materialball():
 
 
 def _materialball_inputs(materialball, front):
-    """K4's inputs on a materialball wavefront, with the frustum lists the
-    route takes: (origin, direction, alive, tcap, WorkList)."""
+    """K4's inputs on a materialball wavefront, with the lists the card's
+    route takes, the work-list kernel's: (origin, direction, alive, tcap,
+    WorkList)."""
     from raytracingthenextweekcuda_tpu_torch.config import EPSILON
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import intersect_kernel as k3
@@ -1189,23 +1208,67 @@ def _materialball_inputs(materialball, front):
     rays, alive = fronts[front]
     assert int((materialball[0].triangles.mesh_id >= 0).sum()) == 2247192
     assert k4.use_frustum_worklist(ds.leaves.n_leaves)
+    assert not k4.use_frustum_route(ds.leaves.n_leaves, rays.origin.device)
     t, code = k3.intersect_packed(rays, ds.analytic, EPSILON, alive=alive)
     alive_mesh, t_cap = mesh_query(ds.leaves, rays, EPSILON, alive, t, code)
-    return k4.winner_inputs(rays, ds.leaves, EPSILON, alive_mesh, t_cap)
+    before = LAUNCHES["worklist"]
+    out = k4.winner_inputs(rays, ds.leaves, EPSILON, alive_mesh, t_cap)
+    assert LAUNCHES["worklist"] == before + 1
+    return out
+
+
+def _sampled_blocks(a, seed, n=24):
+    """A seeded sample of `n` live 128-ray blocks of the alive mask `a` and
+    their rows."""
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+
+    live = torch.nonzero(a.view(-1, k4.BLOCK).any(dim=1)).flatten().cpu().numpy()
+    pick = np.sort(np.random.default_rng(seed).choice(live, n, replace=False))
+    blocks = torch.from_numpy(pick).to(a.device)
+    rows = (blocks[:, None] * k4.BLOCK + torch.arange(k4.BLOCK, device=a.device)).flatten()
+    return blocks, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("front", ["primary", "bounce2"])
+def test_worklist_kernel_matches_plain_on_materialball_blocks(front, materialball):
+    """On the full materialball_x48 scene (4,336 leaves, the group cull),
+    the work-list kernel's lists of a seeded sample of 48 live blocks and
+    the longest list equal its plain version's: counts and order bit for
+    bit, entry in value; no leaf hit lies outside an entered group."""
+    from raytracingthenextweekcuda_tpu_torch.config import EPSILON
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import work
+
+    leaves = materialball[2].leaves
+    o, d, a, tcap, wl = _materialball_inputs(materialball, front)
+    blocks, _ = _sampled_blocks(a, 24, 48)
+    blocks = torch.unique(torch.cat([blocks, wl.counts.argmax().view(1)]))
+    rows = (blocks[:, None] * k4.BLOCK + torch.arange(k4.BLOCK, device=o.device)).flatten()
+    work.reset()
+    plain = k4.worklist_reference(o[rows], d[rows], a[rows], tcap[rows], leaves,
+                                  EPSILON)
+    assert torch.equal(wl.counts[blocks], plain.counts)
+    assert torch.equal(wl.order[blocks], plain.order)
+    assert torch.equal(wl.entry[blocks], plain.entry)
+    assert int(plain.counts.min()) > 0
+    assert work.WORK["group_misses"] == 0
+    assert 0 < work.WORK["group_leaf_tests"] < int(a[rows].sum()) * leaves.n_leaves
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("front", ["primary", "bounce2"])
 def test_frustum_lists_give_k4_the_exact_winners_on_materialball(front, materialball):
     """On the full materialball_x48 scene, K4 walking the frustum pass's
-    lists finds the winners it finds on the exact kernel's lists, bit for
-    bit; every frustum list is at least as long as the exact one."""
+    lists finds the winners it finds on the work-list kernel's exact lists,
+    bit for bit; every frustum list is at least as long as the exact one."""
     from raytracingthenextweekcuda_tpu_torch.config import EPSILON
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
 
     leaves = materialball[2].leaves
-    o, d, a, tcap, wl = _materialball_inputs(materialball, front)
-    exact = k4.build_worklist(o, d, a, leaves.leaf_bounds, EPSILON, tcap=tcap)
+    o, d, a, tcap, exact = _materialball_inputs(materialball, front)
+    wl = k4.build_worklist(o, d, a, leaves.leaf_bounds, EPSILON, tcap=tcap,
+                           frustum=True)
     assert bool((wl.counts >= exact.counts).all())
     t_f, c_f = k4.winner(o, d, a, tcap, wl, leaves, EPSILON)
     t_e, c_e = k4.winner(o, d, a, tcap, exact, leaves, EPSILON)
@@ -1216,19 +1279,16 @@ def test_frustum_lists_give_k4_the_exact_winners_on_materialball(front, material
 @pytest.mark.cuda
 @pytest.mark.parametrize("front", ["primary", "bounce2"])
 def test_k4_matches_plain_on_materialball_blocks(front, materialball):
-    """K4 on the frustum lists bit for bit against its plain version on a
-    seeded sample of 24 of the wavefront's live blocks (a block's winners
-    depend on its own rays and list alone)."""
+    """K4 on the route's lists (the work-list kernel's) bit for bit against
+    its plain version on a seeded sample of 24 of the wavefront's live
+    blocks (a block's winners depend on its own rays and list alone)."""
     from raytracingthenextweekcuda_tpu_torch.config import EPSILON
     from raytracingthenextweekcuda_tpu_torch.ops.cuda import bvh_winner_kernel as k4
 
     leaves = materialball[2].leaves
     o, d, a, tcap, wl = _materialball_inputs(materialball, front)
     t, code = k4.winner(o, d, a, tcap, wl, leaves, EPSILON)
-    live = torch.nonzero(a.view(-1, k4.BLOCK).any(dim=1)).flatten().cpu().numpy()
-    pick = np.sort(np.random.default_rng(23).choice(live, 24, replace=False))
-    blocks = torch.from_numpy(pick).to(o.device)
-    rows = (blocks[:, None] * k4.BLOCK + torch.arange(k4.BLOCK, device=o.device)).flatten()
+    blocks, rows = _sampled_blocks(a, 23)
     sub = k4.WorkList(wl.counts[blocks], wl.order[blocks], wl.entry[blocks])
     t_p, c_p = k4.winner_reference(o[rows], d[rows], a[rows], tcap[rows], sub, leaves,
                                    EPSILON)
@@ -1237,27 +1297,32 @@ def test_k4_matches_plain_on_materialball_blocks(front, materialball):
 
 
 @pytest.mark.cuda
-def test_frustum_span_once_a_bounce_on_materialball(materialball):
-    """A traced image of the cell's job: `k4.frustum` lies in `k4.worklist`
-    once in each bounce."""
+def test_worklist_kernel_once_a_bounce_on_materialball(materialball):
+    """A traced image of the cell's job on the card: no `k4.frustum` span
+    and no frustum pair; the work-list kernel launches once a bounce, in
+    `k4.worklist`, as K4 does."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from raytracingthenextweekcuda_tpu_torch.ops.cuda import work
 
     scene, camera, _, _ = materialball
     cfg = RenderConfig(width=512, height=512, spp=16, bounces=5, spp_per_pass=16)
     integrator.render(scene, camera, cfg, device="cuda")
     torch.cuda.synchronize()
+    before = (LAUNCHES["worklist"], LAUNCHES["K4"])
+    work.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         integrator.render(scene, camera, cfg, device="cuda")
         torch.cuda.synchronize()
-    counts, parents = {}, set()
+    counts = {}
     for e in prof.events():
         if e.device_type != DeviceType.CPU:  # a range's GPU annotation
             continue
         if e.name in ("k4.frustum", "k4.worklist", "wavefront.bounce"):
             counts[e.name] = counts.get(e.name, 0) + 1
-        if e.name == "k4.frustum":
-            parents.add(e.cpu_parent.name if e.cpu_parent else None)
-    assert counts["k4.frustum"] == counts["k4.worklist"] == counts["wavefront.bounce"]
-    assert 1 <= counts["k4.frustum"] <= cfg.bounces
-    assert parents == {"k4.worklist"}
+    launches = LAUNCHES["worklist"] - before[0]
+    assert "k4.frustum" not in counts and work.WORK["frustum_pairs"] == 0
+    assert counts["k4.worklist"] == counts["wavefront.bounce"] == launches
+    assert launches == LAUNCHES["K4"] - before[1]
+    assert 1 <= launches <= cfg.bounces

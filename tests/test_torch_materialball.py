@@ -1,6 +1,7 @@
 """The `materialball_x48` configuration (benchmark/configs/materialball_x48)
-and the work lists' packet-frustum pass it takes on the card, at a small
-size on the CPU.
+and the work lists' packet-frustum pass that CPU tensors take past 2,048
+leaves, as the JAX package does (on the card the work-list kernel builds
+them: tests/test_torch_cuda.py), at a small size on the CPU.
 
 The configuration's data against its rule: the 48 offsets drawn again from
 numpy's default_rng(7) as the repository's large-scene job lays out its

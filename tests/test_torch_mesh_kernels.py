@@ -636,19 +636,21 @@ def test_launches_check_their_inputs():
                        leaves._replace(chunk_bounds=leaves.chunk_bounds[..., :1].contiguous())):
         with pytest.raises(ValueError, match="chunk boxes a leaf"):
             k4._launch(*args, bad_leaves, EPSILON)
-    wl_args = (*args[:4], leaves.leaf_bounds)
+    wl_args = (*args[:4], leaves.leaf_bounds, leaves.group_bounds)
     for k, bad_arg in ((0, args[0].double()),                   # dtype
                        (2, args[2].to(torch.uint8)),            # dtype
                        (3, args[3][:-1]),                       # shape
                        (4, leaves.leaf_bounds[:5]),             # shape
                        (4, leaves.leaf_bounds.to("meta")),      # device
-                       (1, args[1].t().contiguous().t())):      # not contiguous
+                       (1, args[1].t().contiguous().t()),       # not contiguous
+                       (5, leaves.group_bounds.double()),       # dtype
+                       (5, torch.cat([leaves.group_bounds] * 2, dim=1))):  # shape
         bad = list(wl_args)
         bad[k] = bad_arg
         with pytest.raises(ValueError, match="worklist input"):
             k4._launch_worklist(*bad, EPSILON)
     with pytest.raises(ValueError, match="worklist input"):
-        k4._launch_worklist(*(t[:-1] for t in wl_args[:4]), leaves.leaf_bounds,
+        k4._launch_worklist(*(t[:-1] for t in wl_args[:4]), *wl_args[4:],
                             EPSILON)                            # not a block
 
 
@@ -676,6 +678,7 @@ def test_launch_without_nvcc_raises(tmp_path, monkeypatch):
         k4._launch(*args, leaves, EPSILON)
     before_wl = LAUNCHES["worklist"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        k4._launch_worklist(*args[:4], leaves.leaf_bounds, EPSILON)
+        k4._launch_worklist(*args[:4], leaves.leaf_bounds, leaves.group_bounds,
+                            EPSILON)
     assert (LAUNCHES["K3"], LAUNCHES["K4"]) == (before3, before4)
     assert LAUNCHES["worklist"] == before_wl
